@@ -1,0 +1,237 @@
+"""Parity of avr_torch's hash-grid encode and table-gradient scatter with
+the JAX package, on the CPU.
+
+Here the port's wrappers take their plain versions (CPU tensors); JAX
+takes its XLA scatter (``impl="xla"``, no one-hot levels, no split level
+groups off the TPU). The CUDA kernels themselves are held against the
+same plain versions on the card by ``chip_smoke.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from avr_tpu.config import EncodingConfig
+from avr_tpu.models import hashgrid as jhg
+from avr_tpu.ops import hash_scatter as jhs
+
+from avr_torch.config import EncodingConfig as TEncodingConfig
+from avr_torch.models import hashgrid as thg
+from avr_torch.ops import hash_scatter as ths
+from avr_torch.ops import hashgrid_encode as tenc
+
+torch.set_num_threads(2)
+
+INTERPS = ["trilinear", "simplex", "hybridc:2", "hybrid:1", "levels:tsts"]
+
+
+def _cfgs(interp, **kw):
+    base = dict(
+        n_levels=4, n_features_per_level=2, log2_hashmap_size=8,
+        base_resolution=4, per_level_scale=1.6, interpolation=interp,
+    )
+    base.update(kw)
+    return EncodingConfig(**base), TEncodingConfig(**base)
+
+
+def _groups(jst):
+    """JAX statics per same-mode level group (the whole static if pure)."""
+    return jhg._hybrid_groups(jst) or [jst]
+
+
+def _rel(a, b):
+    return np.abs(np.asarray(a) - np.asarray(b)).max() / (np.abs(np.asarray(b)).max() + 1e-30)
+
+
+@pytest.mark.parametrize("F", [1, 2, 4])
+def test_scatter_add_rows_matches_jax(F):
+    rng = np.random.default_rng(0)
+    M, E = 4096, 333  # ~12 updates per row: every row collides
+    idx = rng.integers(0, E, M).astype(np.int32)
+    upd = rng.normal(size=(M, F)).astype(np.float32)
+    ref = np.asarray(jhs.scatter_add_rows(jnp.asarray(idx), jnp.asarray(upd), E, impl="xla"))
+    got = ths.scatter_add_rows(torch.from_numpy(idx), torch.from_numpy(upd), E).numpy()
+    assert got.shape == (E, F) and got.dtype == np.float32
+    assert _rel(got, ref) < 1e-5  # fp32 sums in another order
+
+
+def test_scatter_add_rows_drops_out_of_range_rows():
+    """Rows indexed outside [0, n_rows) are dropped, as the CUDA kernel
+    drops them. JAX's scatter drops the rows past the end as well (its
+    negative indices wrap instead, so those are held to the kept rows only)."""
+    rng = np.random.default_rng(1)
+    M, E, F = 512, 40, 4
+    idx = rng.integers(0, E, M).astype(np.int32)
+    idx[::7] = E + rng.integers(0, 5, idx[::7].shape)
+    idx[3::11] = -1 - rng.integers(0, 5, idx[3::11].shape)
+    upd = rng.normal(size=(M, F)).astype(np.float32)
+    got = ths.scatter_add_rows(torch.from_numpy(idx), torch.from_numpy(upd), E).numpy()
+    keep = (idx >= 0) & (idx < E)
+    kept = ths.scatter_add_rows(torch.from_numpy(idx[keep]), torch.from_numpy(upd[keep]), E).numpy()
+    assert _rel(got, kept) < 1e-6
+    past_end = idx >= 0
+    ref = np.asarray(jhs.scatter_add_rows(jnp.asarray(idx[past_end]), jnp.asarray(upd[past_end]), E, impl="xla"))
+    assert got.shape == (E, F)
+    assert _rel(got, ref) < 1e-5
+
+
+def test_scatter_add_rows_refuses_non_cpu_non_cuda():
+    idx = torch.zeros(8, dtype=torch.int32, device="meta")
+    upd = torch.zeros(8, 4, device="meta")
+    with pytest.raises(ValueError):
+        ths.scatter_add_rows(idx, upd, 16)
+
+
+@pytest.mark.parametrize("interp", INTERPS)
+def test_build_static_matches_jax(interp):
+    jc, tc = _cfgs(interp, n_levels=4)
+    js, ts = jhg.build_static(jc), thg.build_static(tc)
+    for f in ("n_levels", "n_features", "resolutions", "offsets", "sizes", "hashed",
+              "total_entries", "padded_entries", "interp"):
+        assert getattr(js, f) == getattr(ts, f), f
+
+
+@pytest.mark.parametrize("interp", INTERPS)
+def test_level_groups_match_jax_hybrid_groups(interp):
+    """The port's one-launch encode walks the same same-mode level groups
+    that JAX's ``_hybrid_groups`` slices (never split off the TPU)."""
+    jc, tc = _cfgs(interp)
+    js, ts = jhg.build_static(jc), thg.build_static(tc)
+    jg = []
+    for g in _groups(js):
+        lo = js.offsets.index(g.offsets[0])
+        jg.append((lo, lo + g.n_levels, g.interp))
+    tg = [(lo, hi, "simplex" if ts.levels[lo].K == 4 else "trilinear")
+          for lo, hi in tenc.level_groups(ts.levels)]
+    assert tg == jg
+
+
+@pytest.mark.parametrize(
+    "spec,n", [("hybridc", 5), ("hybridc:0", 4), ("hybridc:4", 4), ("hybrid:2", 4),
+               ("levels:ssss", 4), ("levels:ttst", 4), ("Smoothstep", 3), ("", 3)]
+)
+def test_parse_interp_matches_jax(spec, n):
+    assert thg._parse_interp(spec, n) == jhg._parse_interp(spec, n)
+
+
+def _index_cases(rng):
+    x = rng.uniform(-0.1, 1.1, (256, 3)).astype(np.float32)  # includes clamped points
+    a = rng.uniform(0, 1, 64).astype(np.float32)
+    b = rng.uniform(0, 1, 64).astype(np.float32)
+    ties = np.concatenate([
+        np.stack([a, a, b], -1), np.stack([a, b, a], -1), np.stack([b, a, a], -1),
+        np.stack([a, a, a], -1),
+        np.stack([np.zeros(8), np.ones(8), np.full(8, 0.5)], -1).astype(np.float32),
+    ])
+    return np.concatenate([x, ties]).astype(np.float32)
+
+
+@pytest.mark.parametrize(
+    "interp,kw",
+    [
+        ("trilinear", {}),
+        ("simplex", {}),
+        ("hybridc:2", {}),
+        # every level hashed, coordinates up to 2^15: the prime products
+        # wrap uint32 many times over
+        ("hybridc:2", dict(base_resolution=4096, per_level_scale=2.0, log2_hashmap_size=12)),
+        ("simplex", dict(base_resolution=4096, per_level_scale=2.0, log2_hashmap_size=12)),
+    ],
+    ids=["trilinear", "simplex", "hybridc2", "hashed-wrap-mixed", "hashed-wrap-simplex"],
+)
+def test_hash_indices_bit_equal(interp, kw):
+    rng = np.random.default_rng(1)
+    jc, tc = _cfgs(interp, **kw)
+    js, ts = jhg.build_static(jc), thg.build_static(tc)
+    x = _index_cases(rng)
+    jidx, jw = [], []
+    for g in _groups(js):
+        i, w = jhg._indices_weights_klm(g, jnp.asarray(x))
+        jidx.append(np.asarray(i).reshape(-1))
+        jw.append(np.asarray(w).reshape(-1))
+    _, tidx, tw = tenc.encode_rows_reference(
+        torch.zeros(ts.padded_entries, 2), ts.levels, torch.from_numpy(x)
+    )
+    np.testing.assert_array_equal(tidx.numpy(), np.concatenate(jidx))
+    np.testing.assert_array_equal(tw.numpy(), np.concatenate(jw))
+
+
+def _table(rng, st, width):
+    # N(0,1) entries so that tolerances relative to scale mean something
+    return rng.normal(size=(st.padded_entries, width)).astype(np.float32)
+
+
+@pytest.mark.parametrize("interp", INTERPS)
+def test_encode_features_and_table_grads_match_jax(interp):
+    rng = np.random.default_rng(2)
+    jc, tc = _cfgs(interp)
+    js, ts = jhg.build_static(jc), thg.build_static(tc)
+    table = _table(rng, js, 2)
+    x = rng.uniform(0, 1, (5, 32, 3)).astype(np.float32)
+    G = rng.normal(size=(5, 32, js.n_output_dims)).astype(np.float32)
+
+    def jloss(t):
+        out = jhg.encode(t, js, jnp.asarray(x))
+        return jnp.sum(out * G), out
+
+    (_, jout), jgrad = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(table))
+    tt = torch.from_numpy(table).requires_grad_(True)
+    tout = thg.encode(tt, ts, torch.from_numpy(x))
+    (tout * torch.from_numpy(G)).sum().backward()
+    assert tout.shape == jout.shape
+    assert _rel(tout.detach().numpy(), jout) < 1e-6
+    assert _rel(tt.grad.numpy(), jgrad) < 1e-5
+
+
+@pytest.mark.parametrize("interp", ["trilinear", "hybridc:2"])
+def test_encode_pair_fused_matches_jax(interp):
+    rng = np.random.default_rng(3)
+    jc, tc = _cfgs(interp)
+    js, ts = jhg.build_static(jc), thg.build_static(tc)
+    fused = _table(rng, js, 4)
+    x = rng.uniform(0, 1, (64, 3)).astype(np.float32)
+    Ga = rng.normal(size=(64, js.n_output_dims)).astype(np.float32)
+    Gb = rng.normal(size=(64, js.n_output_dims)).astype(np.float32)
+
+    def jloss(t):
+        a, b = jhg.encode_pair_fused(t, js, jnp.asarray(x))
+        return jnp.sum(a * Ga) + jnp.sum(b * Gb), (a, b)
+
+    (_, (ja, jb)), jgrad = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(fused))
+    tt = torch.from_numpy(fused).requires_grad_(True)
+    ta, tb = thg.encode_pair_fused(tt, ts, torch.from_numpy(x))
+    ((ta * torch.from_numpy(Ga)).sum() + (tb * torch.from_numpy(Gb)).sum()).backward()
+    assert _rel(ta.detach().numpy(), ja) < 1e-6
+    assert _rel(tb.detach().numpy(), jb) < 1e-6
+    assert _rel(tt.grad.numpy(), jgrad) < 1e-5
+
+
+def test_encode_bf16_cast_matches_jax_loosely():
+    """bf16 compute: both round the gathered rows to bf16; the port sums in
+    fp32 where JAX sums in bf16 — agreement to bf16 precision."""
+    rng = np.random.default_rng(4)
+    jc, tc = _cfgs("hybridc:2")
+    js, ts = jhg.build_static(jc), thg.build_static(tc)
+    table = _table(rng, js, 2)
+    x = rng.uniform(0, 1, (64, 3)).astype(np.float32)
+    jout = jhg.encode(jnp.asarray(table), js, jnp.asarray(x), compute_dtype=jnp.bfloat16)
+    tout = thg.encode(torch.from_numpy(table), ts, torch.from_numpy(x), compute_dtype=torch.bfloat16)
+    assert tout.dtype == torch.float32
+    assert _rel(tout.numpy(), np.asarray(jout, np.float32)) < 3e-2
+
+
+def test_frequency_encode_matches_jax():
+    x = np.random.default_rng(5).uniform(0, 1, (7, 3)).astype(np.float32)
+    ref = np.asarray(jhg.frequency_encode(jnp.asarray(x), 4))
+    got = thg.frequency_encode(torch.from_numpy(x), 4).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_table_init_shape_and_range():
+    _, tc = _cfgs("trilinear")
+    ts = thg.build_static(tc)
+    t = thg.init(torch.Generator().manual_seed(0), ts, device="cpu", width=4)
+    assert t.shape == (ts.padded_entries, 4)
+    assert float(t.abs().max()) <= 1e-4 and float(t.std()) > 1e-5
