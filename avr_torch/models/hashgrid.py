@@ -1,12 +1,13 @@
 """Multiresolution hash-grid encoding (port of ``avr_tpu/models/hashgrid.py``).
 
 Every level of an encode — dense or hashed, trilinear or Kuhn simplex —
-runs in one forward launch of kernel B (``ops/hashgrid_encode``), and its
-backward is one launch of kernel A (``ops/hash_scatter``), the table-
-gradient scatter-add. The two sit in one ``autograd.Function`` per encode
-call. The gathered [L, K, N, F] corner rows are never stored: the forward
-keeps the corner indices and weights, and the backward forms w·grad in
-fp32 and scatters it into the table.
+runs in one forward launch (``ops/hashgrid_encode.encode_rows``), and its
+backward is one launch of the table-gradient kernel
+(``encode_backward``). The two sit in one ``autograd.Function`` per encode
+call. The forward saves only the points: the backward recomputes each
+corner's row and weight from them and adds w·grad into the table gradient,
+so neither the gathered [L, K, N, F] rows nor the corner streams are ever
+stored.
 
 Inputs are points in the unit cube [0,1]³; out-of-range inputs are clamped.
 The TPU level-group splitting, one-hot levels and encode layouts change no
@@ -24,8 +25,7 @@ import torch
 
 from avr_torch.config import EncodingConfig
 from avr_torch.device import resolve_device
-from avr_torch.ops import hash_scatter
-from avr_torch.ops.hashgrid_encode import LevelSpec, encode_rows, level_groups
+from avr_torch.ops.hashgrid_encode import LevelSpec, encode_backward, encode_rows
 
 
 @dataclass(frozen=True)
@@ -146,38 +146,23 @@ def init(
 class _HashEncode(torch.autograd.Function):
     """table [rows, F] × points [N, 3] → features [N, L, F].
 
-    Forward: kernel B (or its plain version on the CPU), keeping the corner
-    indices and weights. Backward: upd = w·grad in fp32, then kernel A.
-    Points get no gradient (no caller differentiates through positions).
+    Forward: ``encode_rows``, saving x alone. Backward: ``encode_backward``,
+    which recomputes the corners from x. Both take the bf16 rule when
+    ``round_bf16`` is set. Points get no gradient (no caller differentiates
+    through positions).
     """
 
     @staticmethod
     def forward(ctx, table, x, levels, round_bf16):
-        out, idx, w = encode_rows(table, levels, x, round_bf16=round_bf16)
-        ctx.save_for_backward(idx, w)
-        ctx.levels = levels
-        ctx.n_rows = table.shape[0]
-        return out
+        ctx.save_for_backward(x)
+        ctx.levels, ctx.round_bf16, ctx.n_rows = levels, round_bf16, table.shape[0]
+        return encode_rows(table, levels, x, round_bf16=round_bf16)
 
     @staticmethod
     def backward(ctx, g):
-        idx, w = ctx.saved_tensors
-        levels = ctx.levels
-        N, _, F = g.shape
-        g = g.to(torch.float32)
-        upd = torch.empty((idx.shape[0], F), dtype=torch.float32, device=g.device)
-        start = 0
-        for lo, hi in level_groups(levels):
-            Lg, K = hi - lo, levels[lo].K
-            n = Lg * K * N
-            g_l = g[:, lo:hi, :].permute(1, 0, 2)  # [Lg, N, F]
-            torch.mul(
-                w[start : start + n].view(Lg, K, N, 1),
-                g_l.unsqueeze(1),
-                out=upd[start : start + n].view(Lg, K, N, F),
-            )
-            start += n
-        d_table = hash_scatter.scatter_add_rows(idx, upd, ctx.n_rows)
+        (x,) = ctx.saved_tensors
+        g = g.to(torch.float32).contiguous()
+        d_table = encode_backward(g, ctx.levels, x, ctx.n_rows, round_bf16=ctx.round_bf16)
         return d_table, None, None, None
 
 
@@ -191,9 +176,11 @@ def _encode_lnf(table, static: HashGridStatic, x, compute_dtype) -> torch.Tensor
 def encode(table: torch.Tensor, static: HashGridStatic, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     """Encode points x ∈ [0,1]³, shape [..., 3] → [..., L·F].
 
-    With a bf16 ``compute_dtype`` the gathered rows are rounded to bf16
-    (the JAX package casts the table inside the gather); the weighted sum
-    is fp32 and so is the output.
+    With a bf16 ``compute_dtype`` on an fp32 table the encode follows the
+    JAX package's bf16 arithmetic (rows, weights and each product rounded
+    to bf16, summed in fp32, the sum rounded to bf16: bit-equal to
+    ``avr_tpu``'s encode); the output stays fp32, holding those bf16 values,
+    and every consumer casts it to the compute dtype exactly.
     """
     out = _encode_lnf(table, static, x, compute_dtype)
     return out.reshape(*x.shape[:-1], static.n_levels * static.n_features)

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
 ``build/avr_torch_kernels/lib<name>-<hash>.so`` at the repository root.
-The hash covers the source text and the flags, so an edited source builds
-anew and an unchanged one loads from the cache. Nothing here runs at
+The hash covers the source text, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source or header builds anew and an unchanged one
+loads from the cache. Nothing here runs at
 import: the first wrapper call on a CUDA tensor builds and loads its
 library. ``build_all`` starts one nvcc per source, all at once.
 """
@@ -23,7 +24,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "avr_torch_kernels"
-SOURCES = ("hash_scatter", "hashgrid_encode")
+SOURCES = ("hash_scatter", "hashgrid_encode", "hashgrid_encode_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -49,7 +50,8 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -1,184 +1,186 @@
-// Kernel B: fused multiresolution hash-grid encode, forward.
+// Fused multiresolution hash-grid encode, forward.
 //
 // For each (point n, level l): clamp x to [0,1]³, find the lattice cell and
 // the fractional position, choose trilinear (K = 8 corners) or Kuhn simplex
-// (K = 4 vertices) by the level's flag, hash or densely index every corner,
-// gather the F-wide table rows, and sum them by weight in fp32:
+// (K = 4 vertices) by the level's flag, hash or densely index every corner
+// (hashgrid_index.cuh), gather the F-wide table rows and sum them by weight:
 //
-//   out[n, l, :] = Σ_k w[l, k, n] · table[idx[l, k, n], :]
+//   out[n, l, :] = Σ_k w_k · table[row_k, :]          (k ascending, fp32 sum)
 //
 // In the JAX package this is XLA, not Pallas: hashgrid._indices_weights_klm
 // (:434) → hash_scatter.gather_rows_lmajor (:1367) → hashgrid._interp_ksum
 // (:726), run once per level group. Here one launch covers every level of a
-// mixed ("hybridc") encode. The kernel also stores each corner's flat index
-// and weight level-major ([K_l, N] blocks, level l starting at kbase_l·N)
-// for the backward, which scatters w·grad into the table with kernel A. The
-// gathered [L, K, N, F] rows never exist.
+// mixed ("hybridc") encode, and nothing but the output is stored: the
+// backward (hashgrid_encode_bwd.cu) recomputes the corners from x with the
+// same header, so the forward saves x alone.
 //
-// The arithmetic follows _indices_weights_klm operation by operation so the
-// indices are bit-equal to the JAX ones: s = x·res rounded before the floor
-// (no FMA contraction), ties in the simplex ranks broken with `>` on one
-// side and `>=` on the other (:484-486), the spatial hash multiplied in
-// uint32 with wraparound and masked to the level's power-of-two size.
+// round_bf16 = 1 is the JAX package's bf16 compute on an fp32 table
+// (gather_rows_lmajor casts the rows, _interp_ksum the weights):
+//   out = bf16( Σ_k bf16( bf16(row_k) · bf16(w_k) ) )
+// The product of two bf16 values is exact in fp32 and is then rounded; the
+// sum is fp32, k ascending; the result is stored as fp32 holding a bf16 value.
 //
-// What bounds it: bytes, from the random row gathers (L·K·N rows of 4·F B,
-// served largely by L2 on the coarse levels) and the stores of the saved
-// index/weight streams; the index math is a few dozen integer operations
-// per corner. One thread per (point, level), level-major, so a warp shares
-// one level's mode and metadata and its points are neighbours along a ray.
+// What bounds it: bytes, the random F-wide row gathers (K rows of 4·F B per
+// point and level; the distinct rows once) and the [N, L, F] output; the
+// index math is a few dozen integer operations per corner. The design:
+// a block takes 32 points × 2 levels, one warp per level (hashgrid_index.cuh),
+// and the grid runs one level group's point tiles before the next, so the
+// rows in flight are those of two levels (4 MB each at the flagship) and
+// stay in L2 while they are reused, as in a level-major order. Each warp
+// stages its sums in shared memory and the block writes its [32, 2·F] tile
+// as 2·F-float runs per point: whole sectors, consecutive threads on
+// consecutive words, where a warp writing its own level's values would
+// touch 32 sectors per store at a stride of L·F·4 bytes.
 //
-// round_bf16 = 1 rounds every gathered value to bfloat16 before the sum —
-// gather_rows_lmajor(cast="bfloat16") without a bf16 copy of the table.
+// A corners-only entry point (avr_hashgrid_corners) writes each corner's
+// flat row and weight from the same header, level-major ([K_l, N] blocks,
+// level l starting at N·Σ_{l'<l} K_{l'}). It exists so that the indices can
+// be held bit-equal to the plain version on the card.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hashgrid_index.cuh"
 
 namespace {
 
-constexpr int kMeta = 6;  // per level: res, size, offset, hashed, K, kbase
-
-__device__ __forceinline__ int32_t corner_index(int cx, int cy, int cz, int res,
-                                                int size, int offset, int hashed) {
-  cx = min(cx, res);
-  cy = min(cy, res);
-  cz = min(cz, res);
-  if (hashed) {
-    uint32_t h = ((uint32_t)cx * 1u) ^ ((uint32_t)cy * 2654435761u) ^
-                 ((uint32_t)cz * 805459861u);
-    return (int32_t)(h & ((uint32_t)size - 1u)) + offset;
-  }
-  int stride = res + 1;
-  return cx + cy * stride + cz * stride * stride + offset;
-}
+using avr::kTilePoints;
 
 template <int F>
-__device__ __forceinline__ void load_row(const float* __restrict__ table, int64_t r, float* v) {
+__device__ __forceinline__ void load_row(const float* __restrict__ table, int32_t r, float* v) {
   if constexpr (F == 4) {
-    float4 a = __ldg(reinterpret_cast<const float4*>(table) + r);
+    const float4 a = __ldg(reinterpret_cast<const float4*>(table) + r);
     v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
   } else if constexpr (F == 2) {
-    float2 a = __ldg(reinterpret_cast<const float2*>(table) + r);
+    const float2 a = __ldg(reinterpret_cast<const float2*>(table) + r);
     v[0] = a.x; v[1] = a.y;
   } else {
     v[0] = __ldg(table + r);
   }
 }
 
-template <int F>
+template <int F, bool RB>
 __global__ void hashgrid_encode_kernel(const float* __restrict__ x,
                                        const float* __restrict__ table,
-                                       const int32_t* __restrict__ meta,
+                                       const avr::Levels lv,
                                        float* __restrict__ out,
-                                       int32_t* __restrict__ idx_out,
-                                       float* __restrict__ w_out,
-                                       int64_t n_points, int n_levels, int round_bf16) {
-  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_points * n_levels) return;
+                                       int64_t n_points) {
+  extern __shared__ float smem[];
+  float* xs = smem;                     // [32, 3]
+  float* tile = smem + 3 * kTilePoints;  // [32, rs]
+  constexpr int G = avr::kLevelsPerBlock;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t n0 = (int64_t)blockIdx.x * kTilePoints;
+  const int l0 = blockIdx.y * G;
+  const int np = (int)(n_points - n0 < kTilePoints ? n_points - n0 : kTilePoints);
+  const int gl = min(G, lv.n - l0);  // levels of this group
+  const int rs = avr::tile_row_stride(gl, F);
+
+  for (int e = threadIdx.x; e < 3 * np; e += blockDim.x) xs[e] = x[n0 * 3 + e];
+  __syncthreads();
+
+  if (warp < gl && lane < np) {
+    const avr::Level L = lv.lv[l0 + warp];
+    float acc[F] = {};
+    avr::for_each_corner(L, xs + 3 * lane, [&](int, int32_t r, float w) {
+      float v[F];
+      load_row<F>(table, r, v);
+      const float wv = RB ? avr::bf16_round(w) : w;
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        const float p = __fmul_rn(RB ? avr::bf16_round(v[f]) : v[f], wv);
+        acc[f] = __fadd_rn(acc[f], RB ? avr::bf16_round(p) : p);
+      }
+    });
+    float* t = tile + lane * rs + warp * F;
+#pragma unroll
+    for (int f = 0; f < F; ++f) t[f] = RB ? avr::bf16_round(acc[f]) : acc[f];
+  }
+  __syncthreads();
+
+  const int row = gl * F;
+  const int64_t point_stride = (int64_t)lv.n * F;
+  float* o = out + n0 * point_stride + l0 * F;
+  for (int e = threadIdx.x; e < np * row; e += blockDim.x) {
+    const int i = e / row, j = e - i * row;
+    o[i * point_stride + j] = tile[i * rs + j];
+  }
+}
+
+__global__ void hashgrid_corners_kernel(const float* __restrict__ x, const avr::Levels lv,
+                                        int32_t* __restrict__ idx_out,
+                                        float* __restrict__ w_out, int64_t n_points) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n_points * lv.n) return;
   const int l = (int)(t / n_points);
   const int64_t n = t - (int64_t)l * n_points;
-  const int32_t* m = meta + l * kMeta;
-  const int res = m[0], size = m[1], offset = m[2], hashed = m[3], K = m[4];
-  const int64_t base = (int64_t)m[5] * n_points;  // this level's [K, N] block
+  int kbase = 0;
+  for (int i = 0; i < l; ++i) kbase += lv.lv[i].K;
+  const int64_t base = (int64_t)kbase * n_points + n;
+  const float xyz[3] = {x[n * 3], x[n * 3 + 1], x[n * 3 + 2]};
+  const avr::Level L = lv.lv[l];
+  avr::for_each_corner(L, xyz, [&](int k, int32_t r, float w) {
+    idx_out[base + k * n_points] = r;
+    w_out[base + k * n_points] = w;
+  });
+}
 
-  const float resf = (float)res;
-  int p[3];
-  float fr[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    float xv = fminf(fmaxf(x[n * 3 + a], 0.0f), 1.0f);
-    float s = __fmul_rn(xv, resf);
-    int pi = (int)floorf(s);
-    pi = min(max(pi, 0), res - 1);
-    p[a] = pi;
-    fr[a] = __fsub_rn(s, (float)pi);
-  }
-  const float fx = fr[0], fy = fr[1], fz = fr[2];
-
-  float acc[F];
-#pragma unroll
-  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
-
-  auto visit = [&](int k, int cx, int cy, int cz, float w) {
-    int32_t r = corner_index(cx, cy, cz, res, size, offset, hashed);
-    float v[F];
-    load_row<F>(table, r, v);
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      float tv = round_bf16 ? __bfloat162float(__float2bfloat16_rn(v[f])) : v[f];
-      acc[f] = __fadd_rn(acc[f], __fmul_rn(tv, w));
-    }
-    idx_out[base + k * n_points + n] = r;
-    w_out[base + k * n_points + n] = w;
-  };
-
-  if (K == 4) {
-    // Descending rank of each axis' frac, ties broken by axis index.
-    const int rx = (fy > fx) + (fz > fx);
-    const int ry = (fx >= fy) + (fz > fy);
-    const int rz = (fx >= fz) + (fy >= fz);
-    const float s1 = fmaxf(fx, fmaxf(fy, fz));
-    const float s3 = fminf(fx, fminf(fy, fz));
-    const float s2 = __fsub_rn(__fsub_rn(__fadd_rn(__fadd_rn(fx, fy), fz), s1), s3);
-    const float w4[4] = {__fsub_rn(1.0f, s1), __fsub_rn(s1, s2), __fsub_rn(s2, s3), s3};
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      visit(k, p[0] + (rx < k), p[1] + (ry < k), p[2] + (rz < k), w4[k]);
-  } else {
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int bx = c & 1, by = (c >> 1) & 1, bz = (c >> 2) & 1;
-      const float wx = bx ? fx : __fsub_rn(1.0f, fx);
-      const float wy = by ? fy : __fsub_rn(1.0f, fy);
-      const float wz = bz ? fz : __fsub_rn(1.0f, fz);
-      visit(c, p[0] + bx, p[1] + by, p[2] + bz, __fmul_rn(__fmul_rn(wx, wy), wz));
-    }
-  }
-
-  float* o = out + (n * n_levels + l) * F;
-#pragma unroll
-  for (int f = 0; f < F; ++f) o[f] = acc[f];
+template <int F, bool RB>
+void launch(const float* x, const float* table, const avr::Levels& lv, float* out,
+            long long n_points, cudaStream_t s) {
+  hashgrid_encode_kernel<F, RB>
+      <<<avr::tile_grid(n_points, lv.n), 32 * avr::kLevelsPerBlock, avr::tile_smem_bytes(F), s>>>(
+          x, table, lv, out, n_points);
 }
 
 }  // namespace
 
-// Returns a cudaError_t code (0 = launched).
-//   x       fp32 [n_points, 3] contiguous
-//   table   fp32 [rows, f] contiguous (16-byte aligned for f = 4, 8 for f = 2)
-//   meta    int32 [n_levels, 6] on the device
-//   out     fp32 [n_points, n_levels, f]
-//   idx_out int32 [Σ_l K_l · n_points]; w_out fp32, same shape
-extern "C" int avr_hashgrid_encode(const void* x, const void* table, const void* meta,
-                                   void* out, void* idx_out, void* w_out,
-                                   long long n_points, int n_levels, int f,
+// Both entry points return a cudaError_t code (0 = launched).
+//   x      fp32 [n_points, 3] contiguous
+//   meta   int32 [n_levels, 5] in host memory: res, size, offset, hashed, K
+//   table  fp32 [rows, f] contiguous, rows aligned to their width
+//   out    fp32 [n_points, n_levels, f]
+extern "C" int avr_hashgrid_encode(const void* x, const void* table, const int* meta,
+                                   void* out, long long n_points, int n_levels, int f,
                                    int round_bf16, void* stream) {
-  const long long total = n_points * (long long)n_levels;
-  if (total <= 0) return 0;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  if (n_points <= 0) return 0;
+  avr::Levels lv;
+  if (!avr::levels_from_meta(meta, n_levels, &lv)) return (int)cudaErrorInvalidValue;
+  if ((n_points + kTilePoints - 1) / kTilePoints > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidConfiguration;
+  }
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const float* xp = static_cast<const float*>(x);
   const float* tp = static_cast<const float*>(table);
-  const int32_t* mp = static_cast<const int32_t*>(meta);
   float* op = static_cast<float*>(out);
-  int32_t* ip = static_cast<int32_t*>(idx_out);
-  float* wp = static_cast<float*>(w_out);
+  const bool rb = round_bf16 != 0;
   switch (f) {
     case 1:
-      hashgrid_encode_kernel<1><<<(unsigned)blocks, threads, 0, s>>>(
-          xp, tp, mp, op, ip, wp, n_points, n_levels, round_bf16);
+      rb ? launch<1, true>(xp, tp, lv, op, n_points, s)
+         : launch<1, false>(xp, tp, lv, op, n_points, s);
       break;
     case 2:
-      hashgrid_encode_kernel<2><<<(unsigned)blocks, threads, 0, s>>>(
-          xp, tp, mp, op, ip, wp, n_points, n_levels, round_bf16);
+      rb ? launch<2, true>(xp, tp, lv, op, n_points, s)
+         : launch<2, false>(xp, tp, lv, op, n_points, s);
       break;
     case 4:
-      hashgrid_encode_kernel<4><<<(unsigned)blocks, threads, 0, s>>>(
-          xp, tp, mp, op, ip, wp, n_points, n_levels, round_bf16);
+      rb ? launch<4, true>(xp, tp, lv, op, n_points, s)
+         : launch<4, false>(xp, tp, lv, op, n_points, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+//   idx_out int32 [Σ_l K_l · n_points]; w_out fp32, same shape (level-major)
+extern "C" int avr_hashgrid_corners(const void* x, const int* meta, void* idx_out, void* w_out,
+                                    long long n_points, int n_levels, void* stream) {
+  if (n_points <= 0) return 0;
+  avr::Levels lv;
+  if (!avr::levels_from_meta(meta, n_levels, &lv)) return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  const long long blocks = (n_points * n_levels + threads - 1) / threads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  hashgrid_corners_kernel<<<(unsigned)blocks, threads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), lv, static_cast<int32_t*>(idx_out), static_cast<float*>(w_out),
+      n_points);
   return (int)cudaGetLastError();
 }

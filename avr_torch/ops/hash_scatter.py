@@ -1,7 +1,10 @@
 """Table-gradient scatter-add (kernel A) and its plain version.
 
 Port of ``avr_tpu/ops/hash_scatter.py:scatter_add_rows`` (:114), whose TPU
-implementation is the Pallas ``_tile_kernel`` (:872). The sort and tile
+implementation is the Pallas ``_tile_kernel`` (:872). The encode's own
+backward (``hashgrid_encode.encode_backward``) computes the table gradient
+of the training path without an update stream; this generic scatter and
+its plain version, which that backward's plain version uses, stay. The sort and tile
 schedule around that kernel exists only because the TPU has no atomics and
 is not ported; the Hopper kernel (``csrc/hash_scatter.cu``) makes one pass
 over the stream with fp32 atomics, as tinycudann did for the reference.

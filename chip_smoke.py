@@ -8,9 +8,10 @@ in ``build/avr_torch_kernels/``), holds each kernel against its plain
 PyTorch version at the shapes of the flagship training step, checks the
 card path against the plain CPU path on a small config, then drives the
 port's flagship training step (full width, random weights from a seed)
-and shows that it went through both kernels. Prints one JSON object per
-phase, the ``nvidia-smi`` name/power line, a ``kernels`` summary, and as
-its last line ``{"ok": true, "device": {...}}``. Any failed check raises
+and shows that it went through the encode forward and backward kernels
+(the generic scatter kernel is held and timed, but is off that path).
+Prints one JSON object per phase, the ``nvidia-smi`` name/power line, a
+``kernels`` summary, and as its last line ``{"ok": true, "device": {...}}``. Any failed check raises
 and the exit code is non-zero. Without a CUDA device it exits with 2 and
 prints no result.
 """
@@ -36,7 +37,7 @@ TRAIN_STEPS = 3
 # Device kernels of a profiled step, grouped by kind: the first kind with
 # a key in the (lower-cased) kernel name.
 TRACE_KINDS = (
-    ("port", ("hashgrid_encode_kernel", "scatter_add_rows_kernel")),
+    ("port", ("hashgrid_encode_kernel", "hashgrid_encode_bwd_kernel", "scatter_add_rows_kernel")),
     ("matmul", ("nvjet", "gemm")),
     ("fft", ("fft",)),
     ("reduce", ("reduce_kernel",)),
@@ -63,6 +64,32 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device kernel time of ``fn`` (torch.profiler, kernels and
+    memsets summed): no host gaps, for launches too small to keep the card
+    busy back to back."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memset")]
+    check(bool(kern), "the profiler recorded no device kernels")
+    return sum(e["dur"] for e in kern) / 1e3 / iters
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -94,14 +121,13 @@ def flagship_points(torch, dev, cfg, seed: int):
 
 
 def phase_scatter(torch, dev, static, x, results):
-    """Kernel A against index_add_ at the flagship pos_pair stream: the
-    corner indices of the flagship points (from the plain encode)."""
+    """The generic scatter kernel against index_add_ at the flagship pos_pair
+    stream: the corner indices of the flagship points (plain version). Off
+    the training path since the encode backward has its own kernel."""
     from avr_torch.ops import hash_scatter as hs
     from avr_torch.ops import hashgrid_encode as he
 
-    table = torch.zeros((static.padded_entries, 4), device=dev)
-    _, idx, _ = he.encode_rows_reference(table, static.levels, x)
-    del table
+    idx, _ = he.corners_reference(static.levels, x)
     n_rows, M = static.padded_entries, idx.shape[0]
     g = torch.Generator(device=dev).manual_seed(1)
     out = {"phase": "kernel_a_scatter", "M": M, "n_rows": n_rows}
@@ -155,43 +181,202 @@ def phase_scatter(torch, dev, static, x, results):
     emit(out)
 
 
-def phase_encode(torch, dev, static, x, results):
-    """Kernel B against its plain version at the flagship pos_pair encode."""
+def small_streams(cfg, x):
+    """The training step's four small encode streams (F = 2): the ray
+    directions (N = rays) and three per-batch transmitter encodes (N = batch)."""
+    n_dir, bs = cfg.render.n_rays, cfg.train.batch_size
+    return {"dir": x[:n_dir].contiguous(), "tx": x[:bs].contiguous()}
+
+
+def level_kinds(static):
+    """The pos_pair encode's levels by kind, name → (slice of the levels,
+    levels, table rows), and its hashed levels once more with 4,096-row
+    tables packed one after another, so that every row they gather stays in
+    L2: where the encode kernels' time goes, and what the gathers cost."""
+    levels, n_rows = static.levels, static.padded_entries
+    n_dense = static.hashed.index(True)
+    n_tri = static.level_modes.count("t")  # the trilinear levels come first
+    hashed = slice(n_dense, len(levels))
+    small = tuple(lv._replace(size=4096, offset=4096 * i) for i, lv in enumerate(levels[hashed]))
+    return {
+        "dense": (slice(0, n_dense), levels[:n_dense], n_rows),
+        "hashed_trilinear": (slice(n_dense, n_tri), levels[n_dense:n_tri], n_rows),
+        "hashed_simplex": (slice(n_tri, len(levels)), levels[n_tri:], n_rows),
+        "hashed_l2_resident": (hashed, small, 4096 * len(small)),
+    }
+
+
+def phase_encode(torch, dev, cfg, static, x, results):
+    """The encode forward against its plain version at the flagship pos_pair
+    stream, and the corner indices of the shared header against the plain
+    ones. fp32 within 1e-6 of scale; bf16 bit-equal (same roundings, same
+    fp32 sum order). ``kernel_ms`` is fp32, as in the first slice's record;
+    the step runs this stream in bf16 (``bf16_kernel_ms``)."""
     from avr_torch.ops import hashgrid_encode as he
 
     g = torch.Generator(device=dev).manual_seed(2)
     table = torch.randn((static.padded_entries, 4), generator=g, device=dev)
     levels = static.levels
     N, L, F = x.shape[0], len(levels), 4
-    out = {"phase": "kernel_b_encode", "N": N, "levels": L, "F": F}
-    ref, ridx, rw = he.encode_rows_reference(table, levels, x)
-    got, gidx, gw = he.encode_rows(table, levels, x)
+    out = {"phase": "encode_forward", "N": N, "levels": L, "F": F}
+    ridx, rw = he.corners_reference(levels, x)
+    gidx, gw = he.corners(levels, x)
+    torch.cuda.synchronize()
+    check(torch.equal(gidx, ridx), "corner indices of the shared header differ from the plain version")
+    w_err = float((gw - rw).abs().max())
+    check(w_err <= 1e-6, f"corner weights: max|err| {w_err} > 1e-6")
+    ref = he.encode_rows_reference(table, levels, x)
+    got = he.encode_rows(table, levels, x)
+    ref16 = he.encode_rows_reference(table, levels, x, round_bf16=True)
+    got16 = he.encode_rows(table, levels, x, round_bf16=True)
     torch.cuda.synchronize()
     scale = float(ref.abs().max())
     err = float((got - ref).abs().max())
-    check(torch.equal(gidx, ridx), "kernel B corner indices differ from the plain version")
-    w_err = float((gw - rw).abs().max())
-    check(w_err <= 1e-6, f"kernel B weights: max|err| {w_err} > 1e-6")
-    check(err <= 1e-6 * scale, f"kernel B fp32: max|err| {err} > 1e-6 × {scale}")
-    ref16, _, _ = he.encode_rows_reference(table, levels, x, round_bf16=True)
-    got16, _, _ = he.encode_rows(table, levels, x, round_bf16=True)
-    torch.cuda.synchronize()
+    check(err <= 1e-6 * scale, f"encode forward fp32: max|err| {err} > 1e-6 × {scale}")
     err16 = float((got16 - ref16).abs().max())
-    # Both sides round the same gathered rows to bf16 before the fp32 sum.
-    check(err16 <= 1e-6 * scale, f"kernel B bf16: max|err| {err16} > 1e-6 × {scale}")
+    n_diff16 = int((got16 != ref16).sum())
+    check(n_diff16 == 0, f"encode forward bf16: {n_diff16} values differ from the plain version (max {err16})")
+    check(torch.equal(got16, got16.to(torch.bfloat16).to(torch.float32)), "bf16 output holds non-bf16 values")
     M = gidx.shape[0]
     rows = int(torch.unique(gidx).numel())
-    b_ms, b_by = bound(N * 12 + rows * F * 4 + N * L * F * 4 + M * 8, M * 2 * F)
+    b_ms, b_by = bound(N * 12 + rows * F * 4 + N * L * F * 4, M * 2 * F)
     rec = {
-        "max_abs_err": err, "scale": scale, "bf16_max_abs_err": err16,
+        "max_abs_err": err, "bf16_max_abs_err": err16, "scale": scale, "bf16_values_differing": n_diff16,
         "weights_max_abs_err": w_err, "corner_rows": M, "distinct_rows": rows,
         "kernel_ms": time_ms(lambda: he.encode_rows(table, levels, x)),
+        "bf16_kernel_ms": time_ms(lambda: he.encode_rows(table, levels, x, round_bf16=True)),
         "plain_ms": time_ms(lambda: he.encode_rows_reference(table, levels, x), iters=5),
-        "library_ms": None,
-        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "corners_only_ms": time_ms(lambda: he.corners(levels, x)),
+        "device_ms": device_ms(lambda: he.encode_rows(table, levels, x)),
     }
+    rec["by_level_kind_device_ms"] = {}
+    for name, (_, lvs, n) in level_kinds(static).items():
+        t = table if n == table.shape[0] else torch.randn((n, F), generator=g, device=dev)
+        rec["by_level_kind_device_ms"][name] = device_ms(lambda: he.encode_rows(t, lvs, x))
+    # the step's four other launches: F = 2 on a table of the same geometry,
+    # fp32 as the step runs them
+    t2 = torch.randn((static.padded_entries, 2), generator=g, device=dev)
+    for name, xs in small_streams(cfg, x).items():
+        n = xs.shape[0]
+        k_rows = int(torch.unique(he.corners(levels, xs)[0]).numel())
+        sb, _ = bound(n * 12 + k_rows * 8 + n * L * 8, n * sum(lv.K for lv in levels) * 4)
+        rec[f"{name}_stream"] = {  # back to back, the host's per-call cost bounds the events' time
+            "N": n, "F": 2, "bound_ms": sb,
+            "back_to_back_ms": time_ms(lambda: he.encode_rows(t2, levels, xs)),
+            "device_ms": device_ms(lambda: he.encode_rows(t2, levels, xs)),
+        }
+    # an odd level count leaves the last level group partial, 650 points the last point tile
+    odd, xs = levels[:5], x[:650].contiguous()
+    rec["partial_tiles_bit_equal"] = torch.equal(
+        he.encode_rows(table, odd, xs, round_bf16=True),
+        he.encode_rows_reference(table, odd, xs, round_bf16=True),
+    )
+    check(rec["partial_tiles_bit_equal"], "encode forward bf16 on partial tiles differs from the plain version")
     out.update(rec)
     results["encode"] = rec
+    emit(out)
+
+
+def phase_encode_bwd(torch, dev, cfg, static, x, results):
+    """The encode backward (table gradient, zero fill included) against its
+    plain version at the flagship pos_pair stream, F = 4 and 2, fp32 and
+    bf16: within 1e-5 of scale (atomics sum in run-dependent order).
+    ``kernel_ms`` is fp32, ``bf16_kernel_ms`` the step's mode. Also times the
+    split by level kind and, once, the route it replaced (corner streams,
+    torch.mul into an [M, F] update buffer, then the scatter kernel or
+    index_add_)."""
+    from avr_torch.ops import hash_scatter as hs
+    from avr_torch.ops import hashgrid_encode as he
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    levels, n_rows = static.levels, static.padded_entries
+    N, L = x.shape[0], len(levels)
+    out = {"phase": "encode_backward", "N": N, "levels": L, "n_rows": n_rows}
+    M = N * sum(lv.K for lv in levels)
+    for F in (4, 2):
+        g = torch.randn((N, L, F), generator=gen, device=dev)
+        for rb in (False, True):
+            ref = he.encode_backward_reference(g, levels, x, n_rows, round_bf16=rb)
+            got = he.encode_backward(g, levels, x, n_rows, round_bf16=rb)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            scale = float(ref.abs().max())
+            tag = f"F{F}_{'bf16' if rb else 'fp32'}"
+            check(err <= 1e-5 * scale, f"encode backward {tag}: max|err| {err} > 1e-5 × {scale}")
+            b_ms, b_by = bound(N * 12 + N * L * F * 4 + n_rows * F * 4, M * 2 * F)
+            rec = {
+                "max_abs_err": err, "scale": scale,
+                "kernel_ms": time_ms(lambda: he.encode_backward(g, levels, x, n_rows, round_bf16=rb)),
+                "plain_ms": time_ms(
+                    lambda: he.encode_backward_reference(g, levels, x, n_rows, round_bf16=rb), iters=5
+                ),
+                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            }
+            del ref, got
+            out[tag] = rec
+        if F == 4:
+            main = out["F4_fp32"]
+            results["encode_bwd"] = main
+            main["bf16_kernel_ms"] = out["F4_bf16"]["kernel_ms"]
+            main["bf16_max_abs_err"] = out["F4_bf16"]["max_abs_err"]
+            main["zero_fill_ms"] = time_ms(lambda: torch.zeros((n_rows, F), device=dev))
+            main["device_ms"] = device_ms(lambda: he.encode_backward(g, levels, x, n_rows))
+            main["by_level_kind_device_ms"] = {}  # each with its own zero fill
+            for name, (sl, lvs, n) in level_kinds(static).items():
+                g_s = g[:, sl].contiguous()
+                main["by_level_kind_device_ms"][name] = device_ms(lambda: he.encode_backward(g_s, lvs, x, n))
+            # The route this kernel replaced, timed once for the record (fp32).
+            idx, w = he.corners(levels, x)
+            upd = torch.empty((M, F), device=dev)
+            groups = []
+            start = 0
+            for lo, hi in he.level_groups(levels):
+                n = (hi - lo) * levels[lo].K * N
+                groups.append((lo, hi, levels[lo].K, start, n))
+                start += n
+
+            def mul():
+                for lo, hi, K, s0, n in groups:
+                    torch.mul(w[s0 : s0 + n].view(hi - lo, K, N, 1), g[:, lo:hi].permute(1, 0, 2).unsqueeze(1),
+                              out=upd[s0 : s0 + n].view(hi - lo, K, N, F))
+
+            buf = torch.zeros((n_rows, F), device=dev)
+
+            def via_index_add():
+                mul()
+                buf.zero_()
+                buf.index_add_(0, idx, upd)
+
+            main["old_route"] = {
+                "mul_ms": time_ms(mul),
+                "mul_then_scatter_kernel_ms": time_ms(lambda: (mul(), hs.scatter_add_rows(idx, upd, n_rows))),
+                "mul_then_index_add_ms": time_ms(via_index_add),
+            }
+            del idx, w, upd, buf
+        del g
+    # an odd level count leaves the last level group partial, 650 points the last point tile
+    odd, xs = levels[:5], x[:650].contiguous()
+    g5 = torch.randn((xs.shape[0], len(odd), 4), generator=gen, device=dev)
+    ref = he.encode_backward_reference(g5, odd, xs, n_rows)
+    err = float((he.encode_backward(g5, odd, xs, n_rows) - ref).abs().max())
+    scale = float(ref.abs().max())
+    check(err <= 1e-5 * scale, f"encode backward on partial tiles: max|err| {err} > 1e-5 × {scale}")
+    out["partial_tiles"] = {"max_abs_err": err, "scale": scale}
+    gs = torch.Generator(device=dev).manual_seed(6)
+    for name, xs in small_streams(cfg, x).items():
+        n = xs.shape[0]
+        g2 = torch.randn((n, L, 2), generator=gs, device=dev)
+        ref = he.encode_backward_reference(g2, levels, xs, n_rows)
+        err = float((he.encode_backward(g2, levels, xs, n_rows) - ref).abs().max())
+        scale = float(ref.abs().max())
+        check(err <= 1e-5 * scale, f"encode backward {name} stream: max|err| {err} > 1e-5 × {scale}")
+        sb, _ = bound(n * 12 + n * L * 8 + n_rows * 8, n * sum(lv.K for lv in levels) * 4)
+        out[f"{name}_stream"] = {
+            "N": n, "F": 2, "max_abs_err": err, "scale": scale, "bound_ms": sb,
+            "back_to_back_ms": time_ms(lambda: he.encode_backward(g2, levels, xs, n_rows)),
+            "device_ms": device_ms(lambda: he.encode_backward(g2, levels, xs, n_rows)),
+        }
     emit(out)
 
 
@@ -268,6 +453,7 @@ def phase_train(torch, dev, profile_dir, results):
     torch.cuda.reset_peak_memory_stats(dev)
     hs.scatter_add_rows.launches = 0
     he.encode_rows.launches = 0
+    he.encode_backward.launches = 0
     step_ms, bundles = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -275,7 +461,10 @@ def phase_train(torch, dev, profile_dir, results):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         bundles.append({k: float(v) for k, v in bundle.as_dict().items()})
-    launches = {"scatter": hs.scatter_add_rows.launches, "encode": he.encode_rows.launches}
+    launches = {
+        "scatter": hs.scatter_add_rows.launches, "encode": he.encode_rows.launches,
+        "encode_bwd": he.encode_backward.launches,
+    }
     peak = torch.cuda.max_memory_allocated(dev)
     for i, b in enumerate(bundles):
         bad = [k for k, v in b.items() if v != v or v in (float("inf"), float("-inf"))]
@@ -283,8 +472,10 @@ def phase_train(torch, dev, profile_dir, results):
     check(int(state.step) == TRAIN_STEPS, f"step count {int(state.step)} != {TRAIN_STEPS}")
     unchanged = [n for n, t in named_leaves(state.params) if torch.equal(t, before[n])]
     check(not unchanged, f"params unchanged by training: {unchanged}")
-    for k, v in launches.items():
-        check(v > 0, f"kernel {k} was not launched by the training steps")
+    # five encodes per step (pos_pair, dir, tx_pos, tx_dir, tx_pos_sig), each
+    # one forward and one backward launch; the generic scatter is off the path
+    for k in ("encode", "encode_bwd"):
+        check(launches[k] == 5 * TRAIN_STEPS, f"kernel {k}: {launches[k]} launches in {TRAIN_STEPS} steps")
     results["launches"] = launches
     steady_ms = sum(step_ms[1:]) / (TRAIN_STEPS - 1)
     emit({
@@ -338,8 +529,7 @@ def trace_summary(trace_path: str, steady_ms: float) -> dict:
         "profiled_span_ms": (max(e["ts"] + e["dur"] for e in kern) - min(e["ts"] for e in kern)) / 1e3,
         "busy_share_of_steady_step": busy_ms / steady_ms,
         "port_kernels_ms": {
-            k: v for k, v in by_name.items()
-            if "hashgrid_encode_kernel" in k or "scatter_add_rows_kernel" in k
+            k: v for k, v in by_name.items() if any(s in k.lower() for s in dict(TRACE_KINDS)["port"])
         },
         "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10]),
     }
@@ -389,31 +579,28 @@ def main() -> int:
     static = field.build_field(cfg.model, "RAF").encodings["pos"].grid
     x = flagship_points(torch, dev, cfg, seed=0)
     phase_scatter(torch, dev, static, x, results)
-    phase_encode(torch, dev, static, x, results)
+    phase_encode(torch, dev, cfg, static, x, results)
+    phase_encode_bwd(torch, dev, cfg, static, x, results)
     phase_small_parity(torch, dev)
     phase_train(torch, dev, args.profile, results)
 
+    kernels = (  # name, source, the TPU code it replaces, key of its results and launch count
+        ("hash_scatter_add_rows", "hash_scatter.cu", "avr_tpu/ops/hash_scatter.py:872", "scatter"),
+        ("hashgrid_encode_fwd", "hashgrid_encode.cu", "avr_tpu/models/hashgrid.py:434", "encode"),
+        ("hashgrid_encode_bwd", "hashgrid_encode_bwd.cu", "avr_tpu/ops/hash_scatter.py:872", "encode_bwd"),
+    )
     emit({"kernels": [
         {
-            "name": "hash_scatter_add_rows", "route": "cuda",
-            "source": "avr_torch/ops/csrc/hash_scatter.cu",
-            "replaces": "avr_tpu/ops/hash_scatter.py:872",
-            "launches": results["launches"]["scatter"],
-            "max_abs_err": results["scatter"]["max_abs_err"],
-            "ms": results["scatter"]["kernel_ms"], "kernel_ms": results["scatter"]["kernel_ms"],
-            "plain_ms": results["scatter"]["plain_ms"], "bound_ms": results["scatter"]["bound_ms"],
-            "bound_by": results["scatter"]["bound_by"], "library_ms": results["scatter"]["library_ms"],
-        },
-        {
-            "name": "hashgrid_encode_fwd", "route": "cuda",
-            "source": "avr_torch/ops/csrc/hashgrid_encode.cu",
-            "replaces": "avr_tpu/models/hashgrid.py:434",
-            "launches": results["launches"]["encode"],
-            "max_abs_err": results["encode"]["max_abs_err"],
-            "ms": results["encode"]["kernel_ms"], "kernel_ms": results["encode"]["kernel_ms"],
-            "plain_ms": results["encode"]["plain_ms"], "bound_ms": results["encode"]["bound_ms"],
-            "bound_by": results["encode"]["bound_by"], "library_ms": None,
-        },
+            "name": name, "route": "cuda", "source": f"avr_torch/ops/csrc/{src}", "replaces": replaces,
+            "launches": results["launches"][key],
+            "max_abs_err": results[key]["max_abs_err"],
+            "ms": results[key]["kernel_ms"], "kernel_ms": results[key]["kernel_ms"],
+            "bf16_ms": results[key].get("bf16_kernel_ms"),
+            "bf16_max_abs_err": results[key].get("bf16_max_abs_err"),
+            "plain_ms": results[key]["plain_ms"], "bound_ms": results[key]["bound_ms"],
+            "bound_by": results[key]["bound_by"], "library_ms": results[key]["library_ms"],
+        }
+        for name, src, replaces, key in kernels
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {

@@ -151,9 +151,7 @@ def test_hash_indices_bit_equal(interp, kw):
         i, w = jhg._indices_weights_klm(g, jnp.asarray(x))
         jidx.append(np.asarray(i).reshape(-1))
         jw.append(np.asarray(w).reshape(-1))
-    _, tidx, tw = tenc.encode_rows_reference(
-        torch.zeros(ts.padded_entries, 2), ts.levels, torch.from_numpy(x)
-    )
+    tidx, tw = tenc.corners_reference(ts.levels, torch.from_numpy(x))
     np.testing.assert_array_equal(tidx.numpy(), np.concatenate(jidx))
     np.testing.assert_array_equal(tw.numpy(), np.concatenate(jw))
 
@@ -163,10 +161,19 @@ def _table(rng, st, width):
     return rng.normal(size=(st.padded_entries, width)).astype(np.float32)
 
 
-@pytest.mark.parametrize("interp", INTERPS)
-def test_encode_features_and_table_grads_match_jax(interp):
+# every interpolation mode, and two configs where every level is hashed and
+# the prime products wrap uint32 many times over
+_ENCODE_CASES = [(i, {}) for i in INTERPS] + [
+    ("hybridc:2", dict(base_resolution=4096, per_level_scale=2.0, log2_hashmap_size=12)),
+    ("simplex", dict(base_resolution=4096, per_level_scale=2.0, log2_hashmap_size=12)),
+]
+_ENCODE_IDS = INTERPS + ["hashed-wrap-mixed", "hashed-wrap-simplex"]
+
+
+@pytest.mark.parametrize("interp,kw", _ENCODE_CASES, ids=_ENCODE_IDS)
+def test_encode_features_and_table_grads_match_jax(interp, kw):
     rng = np.random.default_rng(2)
-    jc, tc = _cfgs(interp)
+    jc, tc = _cfgs(interp, **kw)
     js, ts = jhg.build_static(jc), thg.build_static(tc)
     table = _table(rng, js, 2)
     x = rng.uniform(0, 1, (5, 32, 3)).astype(np.float32)
@@ -208,18 +215,88 @@ def test_encode_pair_fused_matches_jax(interp):
     assert _rel(tt.grad.numpy(), jgrad) < 1e-5
 
 
-def test_encode_bf16_cast_matches_jax_loosely():
-    """bf16 compute: both round the gathered rows to bf16; the port sums in
-    fp32 where JAX sums in bf16 — agreement to bf16 precision."""
+@pytest.mark.parametrize("interp,kw", _ENCODE_CASES, ids=_ENCODE_IDS)
+def test_encode_bf16_cast_matches_jax_loosely(interp, kw):
+    """bf16 compute on an fp32 table: the port's forward is bit-equal to
+    JAX's (rows, weights and each product rounded to bf16, fp32 sum in
+    corner order, rounded to bf16), and its table gradient (update
+    bf16(bf16(g)·bf16(w)), fp32 sum) agrees to fp32 summation order."""
     rng = np.random.default_rng(4)
-    jc, tc = _cfgs("hybridc:2")
+    jc, tc = _cfgs(interp, **kw)
     js, ts = jhg.build_static(jc), thg.build_static(tc)
     table = _table(rng, js, 2)
-    x = rng.uniform(0, 1, (64, 3)).astype(np.float32)
-    jout = jhg.encode(jnp.asarray(table), js, jnp.asarray(x), compute_dtype=jnp.bfloat16)
-    tout = thg.encode(torch.from_numpy(table), ts, torch.from_numpy(x), compute_dtype=torch.bfloat16)
+    x = rng.uniform(0, 1, (4096, 3)).astype(np.float32)
+    G = rng.normal(size=(4096, js.n_output_dims)).astype(np.float32)
+
+    def jloss(t):
+        out = jhg.encode(t, js, jnp.asarray(x), compute_dtype=jnp.bfloat16)
+        return jnp.sum(out.astype(jnp.float32) * G), out
+
+    (_, jout), jgrad = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(table))
+    assert jout.dtype == jnp.bfloat16
+    tt = torch.from_numpy(table).requires_grad_(True)
+    tout = thg.encode(tt, ts, torch.from_numpy(x), compute_dtype=torch.bfloat16)
+    (tout * torch.from_numpy(G)).sum().backward()
     assert tout.dtype == torch.float32
-    assert _rel(tout.numpy(), np.asarray(jout, np.float32)) < 3e-2
+    np.testing.assert_array_equal(tout.detach().numpy(), np.asarray(jout, np.float32))
+    assert _rel(tt.grad.numpy(), jgrad) < 1e-5
+
+
+@pytest.mark.parametrize("round_bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("interp,kw", _ENCODE_CASES, ids=_ENCODE_IDS)
+def test_encode_backward_reference_matches_stream_route(interp, kw, round_bf16):
+    """The backward that recomputes the corners equals the route that
+    stored them: corner streams, per-corner update w·g (bf16 rule), then
+    the scatter-add."""
+    rng = np.random.default_rng(6)
+    _, tc = _cfgs(interp, **kw)
+    ts = thg.build_static(tc)
+    x = torch.from_numpy(_index_cases(rng))
+    N, L, F = x.shape[0], ts.n_levels, 4
+    g = torch.from_numpy(rng.normal(size=(N, L, F)).astype(np.float32))
+    got = tenc.encode_backward(g, ts.levels, x, ts.padded_entries, round_bf16=round_bf16)
+
+    idx, w = tenc.corners_reference(ts.levels, x)
+    gl, wl = g, w
+    if round_bf16:
+        gl, wl = g.to(torch.bfloat16), w.to(torch.bfloat16)
+    upds, start = [], 0
+    for lo, hi in tenc.level_groups(ts.levels):  # level-major [K, N] blocks
+        K = ts.levels[lo].K
+        for lvl in range(lo, hi):
+            wk = wl[start : start + K * N].reshape(K, N, 1)
+            upds.append((wk * gl[None, :, lvl, :]).to(torch.float32).reshape(-1, F))
+            start += K * N
+    ref = ths.scatter_add_rows_reference(idx, torch.cat(upds), ts.padded_entries)
+    assert got.shape == (ts.padded_entries, F) and got.dtype == torch.float32
+    assert _rel(got.numpy(), ref.numpy()) < 1e-6
+
+
+def test_hash_encode_saves_only_x():
+    """The forward keeps the points alone for the backward (no corner
+    streams: 72 MB at the flagship)."""
+    rng = np.random.default_rng(7)
+    _, tc = _cfgs("hybridc:2")
+    ts = thg.build_static(tc)
+    tt = torch.from_numpy(_table(rng, ts, 4)).requires_grad_(True)
+    x = torch.from_numpy(rng.uniform(0, 1, (96, 3)).astype(np.float32))
+    out = thg._HashEncode.apply(tt, x, ts.levels, False)
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 1 and torch.equal(saved[0], x)
+
+
+@pytest.mark.parametrize("fn", ["encode_rows", "encode_backward", "corners"])
+def test_encode_wrappers_refuse_non_cpu_non_cuda(fn):
+    _, tc = _cfgs("hybridc:2")
+    ts = thg.build_static(tc)
+    x = torch.zeros(8, 3, device="meta")
+    args = {
+        "encode_rows": (torch.zeros(ts.padded_entries, 2, device="meta"), ts.levels, x),
+        "encode_backward": (torch.zeros(8, ts.n_levels, 2, device="meta"), ts.levels, x, ts.padded_entries),
+        "corners": (ts.levels, x),
+    }[fn]
+    with pytest.raises(ValueError):
+        getattr(tenc, fn)(*args)
 
 
 def test_frequency_encode_matches_jax():
