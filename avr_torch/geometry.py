@@ -1,4 +1,4 @@
-"""Spherical ray geometry (port of ``avr_tpu/geometry.py:22-88``).
+"""Spherical ray geometry (port of ``avr_tpu/geometry.py:22-88,102-116``).
 
 The random azimuth offset comes from a ``torch.Generator`` (JAX used a
 PRNG key); ``generator=None`` gives the deterministic grid used by tests
@@ -9,7 +9,7 @@ seed, so parity tests pass ``dirs`` explicitly.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -62,3 +62,19 @@ def ray_points(rays_o: torch.Tensor, dirs: torch.Tensor, d_vals: torch.Tensor) -
 def normalize_points(pts: torch.Tensor, xyz_min: torch.Tensor, xyz_max: torch.Tensor) -> torch.Tensor:
     """World → [−1,1] box coordinates."""
     return 2.0 * (pts - xyz_min) / (xyz_max - xyz_min) - 1.0
+
+
+def quaternion_to_direction(q) -> Tuple[float, float, float]:
+    """Quaternion [x,y,z,w] → planar forward direction (host math, for the
+    RAF loader).
+
+    The reference's RAF convention (reference/datasets_loader.py:223-244):
+    the forward vector is projected to the horizontal plane, normalized over
+    its (x,z) components, axes swapped to match the [0,2,1] position
+    permutation, and negated.
+    """
+    x, y, z, w = (float(v) for v in q)
+    fwd_x = 2.0 * (x * z + w * y)
+    fwd_z = 1.0 - 2.0 * (x * x + y * y)
+    norm = math.sqrt(fwd_x * fwd_x + fwd_z * fwd_z)
+    return (-fwd_x / norm, -fwd_z / norm, 0.0)

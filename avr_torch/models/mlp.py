@@ -1,11 +1,12 @@
 """MLP stacks for the neural IR field (port of ``avr_tpu/models/mlp.py``).
 
-Params are plain dicts ``{"w": [...], "b": [...], "emb": []}`` of fp32
+Params are plain dicts ``{"w": [...], "b": [...], "emb": [...]}`` of fp32
 tensors, as in the JAX package, so converted JAX params plug in directly.
-Channel-embedding injection (``emb``) is a later slice; the list stays
-empty so the param tree matches the JAX one.
 An ``n_hidden_layers=H`` network has H hidden linears of width
-``n_neurons`` and one output linear (tcnn's layout).
+``n_neurons`` and one output linear (tcnn's layout). With ``inject`` each
+hidden layer also has a ``[ch_num, n_neurons]`` table of channel
+embeddings, ``emb[layer]``: the row of the microphone channel ``ch_idx`` is
+added to the layer's pre-activation (the reference's "add" connection).
 
 Matmuls run on ``torch.matmul`` (cuBLAS on the card). With a bf16
 ``compute_dtype`` they take bf16 operands, accumulate in fp32 and return
@@ -56,6 +57,8 @@ class MLPStatic:
     activation: str = "ReLU"
     output_activation: str = "None"
     use_bias: bool = True
+    inject: bool = False  # per-layer channel-embedding injection ("add")
+    ch_num: int = 0
 
     @property
     def layer_dims(self) -> Tuple[Tuple[int, int], ...]:
@@ -69,7 +72,7 @@ class MLPStatic:
 
 
 def init(generator: Optional[torch.Generator], static: MLPStatic, device="cuda") -> Params:
-    """He-normal weights, zero biases."""
+    """He-normal weights, zero biases, channel embeddings N(0, 1/n_neurons)."""
     device = resolve_device(device)
     gdev = generator.device if generator is not None else device
 
@@ -79,6 +82,10 @@ def init(generator: Optional[torch.Generator], static: MLPStatic, device="cuda")
         params["w"].append(w * (2.0 / d_in) ** 0.5)
         if static.use_bias:
             params["b"].append(torch.zeros((d_out,), device=device))
+    if static.inject:
+        for _ in range(static.n_hidden_layers):
+            e = torch.randn((static.ch_num, static.n_neurons), generator=generator, device=gdev)
+            params["emb"].append(e.to(device) / static.n_neurons**0.5)
     return params
 
 
@@ -127,15 +134,22 @@ def _matmul(x: torch.Tensor, w: torch.Tensor, compute_dtype) -> torch.Tensor:
     return _MatmulCD.apply(x, w, compute_dtype)
 
 
-def apply(params: Params, static: MLPStatic, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
-    """Forward pass. x: [..., n_input_dims]."""
+def apply(
+    params: Params, static: MLPStatic, x: torch.Tensor, ch_idx: Optional[torch.Tensor] = None,
+    compute_dtype=None,
+) -> torch.Tensor:
+    """Forward pass. x: [..., n_input_dims]; ch_idx: integer channels
+    broadcastable against x's leading dims, or None."""
     h = _matmul(x, params["w"][0], compute_dtype)
     if static.use_bias:
         h = h + params["b"][0]
-    return apply_tail(params, static, h, compute_dtype=compute_dtype)
+    return apply_tail(params, static, h, ch_idx=ch_idx, compute_dtype=compute_dtype)
 
 
-def apply_tail(params: Params, static: MLPStatic, h: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+def apply_tail(
+    params: Params, static: MLPStatic, h: torch.Tensor, ch_idx: Optional[torch.Tensor] = None,
+    compute_dtype=None,
+) -> torch.Tensor:
     """Run the network given the first layer's pre-activation ``h``."""
     act = _activation(static.activation)
     out_act = _activation(static.output_activation)
@@ -146,6 +160,8 @@ def apply_tail(params: Params, static: MLPStatic, h: torch.Tensor, compute_dtype
             if static.use_bias:
                 h = h + params["b"][layer]
         if layer < n_layers - 1:
+            if static.inject and ch_idx is not None:
+                h = h + params["emb"][layer][ch_idx]
             h = act(h)
     return out_act(h)
 

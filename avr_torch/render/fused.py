@@ -1,17 +1,25 @@
-"""Fused renderer, precomputed plan (port of ``avr_tpu/render/fused.py:124-352``).
+"""Fused renderer (port of ``avr_tpu/render/fused.py``).
 
-  1. Per-point pass: the hash encodings and sigma features of ALL sample
-     points are evaluated at once — each hash table sees one gather
-     (kernel B) forward and one scatter-add (kernel A) backward per step —
-     and the compositing weights w = transmittance·α are formed.
-  2. Signal pass over S/C shell chunks: the matmul-only signal tail,
-     causality masks, and the ray contraction y[b,c,t] = Σ_r w·mask·signal
-     in fp32; then the rFFT and fractional phase shift of the ray-reduced
-     [bs, C, T] signal, accumulated into the [bs, F] spectrum. Each chunk
-     runs under ``torch.utils.checkpoint`` (the JAX ``remat=True``), so
-     live memory stays at one chunk's [bs, R, C, T] in the backward too.
+Same math as ``render/oracle.py``, without the [bs, R, S, F] spectrum:
 
-The streaming plan (bs·R·S > point_budget) is a later slice.
+  1. Attenuation. In the **precomputed** plan (bs·R·S ≤ point_budget) the
+     hash encodings and sigma features of ALL sample points are evaluated
+     at once, so each hash table sees one encode forward and one backward
+     launch per step. In the **streaming** plan only the sigma branch runs,
+     shell chunk by shell chunk, keeping the [bs, R, S] attenuation.
+     Then the compositing weights w = transmittance·α are formed.
+  2. Signal pass over S/C shell chunks: the signal tail (from the stored
+     features, or with the sigma branch recomputed per chunk in the
+     streaming plan), causality masks, and the ray contraction
+     y[b,c,t] = Σ_r w·mask·signal in fp32; then the rFFT and fractional
+     phase shift of the ray-reduced [bs, C, T] signal, accumulated into
+     the [bs, F] spectrum.
+
+With ``remat`` each chunk of either pass runs under
+``torch.utils.checkpoint`` (the JAX ``remat=True``): its activations are
+recomputed in the backward, so live memory stays at one chunk's
+[bs, R, C, T]. In the streaming plan that recomputes the chunk's encodes
+too.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ def render_fused(
     rays_o: torch.Tensor,
     position_tx: torch.Tensor,
     direction_tx: Optional[torch.Tensor] = None,
+    ch_idx: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     dirs: Optional[torch.Tensor] = None,
     compute_dtype=torch.bfloat16,
@@ -53,13 +62,13 @@ def render_fused(
     """Render received IR spectra [bs, F, 2] (real, imag).
 
     rays_o / position_tx / direction_tx: [bs, 3] world receiver position,
-    transmitter position and transmitter view. ``dirs`` [R, 3] overrides
-    the ray directions (else drawn from ``generator``); ``ray_weights``
-    [R] scales each ray's contribution.
+    transmitter position and transmitter view (complex variant); ch_idx
+    [bs] integer microphone channels (standard variant) or None. ``dirs``
+    [R, 3] overrides the ray directions (else drawn from ``generator``);
+    ``ray_weights`` [R] scales each ray's contribution.
     """
-    if fstatic.variant != "complex":
-        raise NotImplementedError("avr_torch renders the complex field variant only")
-    if direction_tx is None:
+    is_complex = fstatic.variant == "complex"
+    if is_complex and direction_tx is None:
         raise ValueError("complex field variant requires direction_tx")
     device = rays_o.device
     xyz_min = torch.tensor(rc.xyz_min, dtype=torch.float32, device=device)
@@ -74,36 +83,54 @@ def render_fused(
         dirs = geometry.ray_directions(rc.n_azi, rc.n_ele, generator=generator, device=device)
     R = dirs.shape[0]
     bs = rays_o.shape[0]
-    if bs * R * S > point_budget:
-        raise NotImplementedError(
-            f"bs·R·S = {bs * R * S} > point_budget {point_budget}: the streaming "
-            "render plan is not ported yet"
-        )
+    precompute = bs * R * S <= point_budget
     d_vals = consts.d_vals
     tx_n = geometry.normalize_points(position_tx, xyz_min, xyz_max)  # [bs, 3]
+    tx_q = tx_n[:, None, None, :] if is_complex else None
+    ch_b = ch_idx[:, None, None] if ch_idx is not None else None  # [bs, 1, 1]
+    use_remat = remat and torch.is_grad_enabled()
+
+    def run(fn, *args):
+        return checkpoint(fn, *args, use_reentrant=False) if use_remat else fn(*args)
+
+    def chunks():
+        return (slice(i * C, (i + 1) * C) for i in range(n_chunks))
+
+    def normalized_points(d_c):
+        """World-space sample points of shells d_c and their box coordinates."""
+        pts = geometry.ray_points(rays_o, dirs, d_c)  # [bs, R, C, 3]
+        return pts, geometry.normalize_points(pts, xyz_min, xyz_max)
 
     # per-ray / per-batch signal context
     h_ray, h_batch = field_lib.signal_context(
-        params, fstatic, dirs, tx_n, tx_view=direction_tx, compute_dtype=compute_dtype
+        params, fstatic, dirs, tx_n, tx_view=direction_tx, ch_idx=ch_idx,
+        compute_dtype=compute_dtype,
     )
     h_extra = h_ray[None, :, None, :] + h_batch[:, None, None, :]  # [bs, R, 1, W]
 
-    # pass 1: per-point features + attenuation
-    pts_all = geometry.ray_points(rays_o, dirs, d_vals)  # [bs, R, S, 3]
-    pts_n_all = geometry.normalize_points(pts_all, xyz_min, xyz_max)
-    sigma_feat, attn, psig = field_lib.point_features(
-        params, fstatic, pts_n_all, tx=tx_n[:, None, None, :], compute_dtype=compute_dtype
-    )
-    dist_all = torch.linalg.norm(position_tx[:, None, None, :] - pts_all, dim=-1)  # [bs, R, S]
-    w = compositing_weights(attn[..., 0], d_vals)  # [bs, R, S]
+    # pass 1: attenuation (and, precomputed, every per-point feature)
+    if precompute:
+        pts_all, pts_n_all = normalized_points(d_vals)  # [bs, R, S, 3]
+        sigma_feat, attn, psig = field_lib.point_features(
+            params, fstatic, pts_n_all, tx=tx_q, ch_idx=ch_b, compute_dtype=compute_dtype
+        )
+        attn = attn[..., 0]
+        dist_all = torch.linalg.norm(position_tx[:, None, None, :] - pts_all, dim=-1)  # [bs, R, S]
+    else:
+        def attn_chunk(d_c):
+            _, a = field_lib.sigma_query(
+                params, fstatic, normalized_points(d_c)[1], tx=tx_q, ch_idx=ch_b,
+                compute_dtype=compute_dtype,
+            )
+            return a[..., 0]  # [bs, R, C]
+
+        attn = torch.cat([run(attn_chunk, d_vals[s]) for s in chunks()], dim=-1)
+    w = compositing_weights(attn, d_vals)  # [bs, R, S]
     if ray_weights is not None:
         w = w * ray_weights.to(w.dtype)[None, :, None]
 
     # pass 2: signal tail + ray contraction + spectrum, chunk by chunk
-    def chunk(feat_c, psig_c, dist_c, w_c, tail_c, pl_c, ph_re, ph_im):
-        signal = field_lib.signal_tail_from_features(
-            params, fstatic, feat_c, psig_c, h_extra, compute_dtype=compute_dtype
-        )  # [bs, R, C, T] fp32
+    def spectrum(signal, dist_c, w_c, tail_c, pl_c, ph_re, ph_im):
         head = head_delay_mask(dist_c, rc.fs, rc.speed, T)
         masked = signal * head * tail_c[None, None, :, :]
         y = torch.einsum("brc,brct->bct", w_c, masked)  # [bs, C, T] fp32
@@ -112,18 +139,35 @@ def render_fused(
         im = spec.real * ph_im + spec.imag * ph_re
         return re.sum(dim=1), im.sum(dim=1)
 
+    def precomputed_chunk(feat_c, psig_c, dist_c, *rest):
+        signal = field_lib.signal_tail_from_features(
+            params, fstatic, feat_c, psig_c, h_extra, ch_idx=ch_b, compute_dtype=compute_dtype
+        )  # [bs, R, C, T] fp32
+        return spectrum(signal, dist_c, *rest)
+
+    def streaming_chunk(d_c, *rest):
+        pts, pts_n = normalized_points(d_c)
+        feat_c, _ = field_lib.sigma_query(
+            params, fstatic, pts_n, tx=tx_q, ch_idx=ch_b, compute_dtype=compute_dtype
+        )
+        signal = field_lib.signal_from_parts(
+            params, fstatic, feat_c, pts_n, h_extra, ch_idx=ch_b, compute_dtype=compute_dtype
+        )
+        dist_c = torch.linalg.norm(position_tx[:, None, None, :] - pts, dim=-1)
+        return spectrum(signal, dist_c, *rest)
+
     acc_re = torch.zeros((bs, F), dtype=torch.float32, device=device)
     acc_im = torch.zeros((bs, F), dtype=torch.float32, device=device)
-    for i in range(n_chunks):
-        s = slice(i * C, (i + 1) * C)
-        args = (
-            sigma_feat[:, :, s], psig[:, :, s], dist_all[:, :, s], w[:, :, s],
-            consts.tail_mask[s], consts.pathloss[s], consts.phase_re[s], consts.phase_im[s],
+    for s in chunks():
+        rest = (
+            w[:, :, s], consts.tail_mask[s], consts.pathloss[s], consts.phase_re[s],
+            consts.phase_im[s],
         )
-        if remat and torch.is_grad_enabled():
-            re, im = checkpoint(chunk, *args, use_reentrant=False)
+        if precompute:
+            psig_c = None if psig is None else psig[:, :, s]
+            re, im = run(precomputed_chunk, sigma_feat[:, :, s], psig_c, dist_all[:, :, s], *rest)
         else:
-            re, im = chunk(*args)
+            re, im = run(streaming_chunk, d_vals[s], *rest)
         acc_re = acc_re + re
         acc_im = acc_im + im
     return torch.stack([acc_re, acc_im], dim=-1)

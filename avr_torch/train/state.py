@@ -141,9 +141,11 @@ def make_train_step(
     """Returns (step, render).
 
     ``step(state, batch, generator_or_dirs) → (state, LossBundle)``:
-    batch holds ``wave`` [bs, F, 2], ``pos_rx`` / ``pos_tx`` / ``rot_tx``
-    [bs, 3]; the third argument is a ``torch.Generator`` for this step's
-    random ray directions, or the [R, 3] directions themselves.
+    batch holds tensors on the device: ``wave`` [bs, F, 2], ``pos_rx`` /
+    ``pos_tx`` [bs, 3], and ``rot_tx`` [bs, 3] (complex variant) or
+    ``ch_idx`` [bs] integer channels (multi-channel sets); the third
+    argument is a ``torch.Generator`` for this step's random ray
+    directions, or the [R, 3] directions themselves.
     """
     compute_dtype = (
         None if tc.compute_dtype in ("float32", "none", None) else getattr(torch, tc.compute_dtype)
@@ -153,8 +155,8 @@ def make_train_step(
         return render_fused(
             params, fstatic, consts, rc,
             batch["pos_rx"], batch["pos_tx"], direction_tx=batch.get("rot_tx"),
-            dirs=dirs, compute_dtype=compute_dtype, shell_chunk=tc.shell_chunk,
-            remat=bool(tc.remat), point_budget=tc.point_budget,
+            ch_idx=batch.get("ch_idx"), dirs=dirs, compute_dtype=compute_dtype,
+            shell_chunk=tc.shell_chunk, remat=bool(tc.remat), point_budget=tc.point_budget,
         )
 
     def step(
@@ -162,6 +164,8 @@ def make_train_step(
         generator_or_dirs: Union[torch.Generator, torch.Tensor],
     ) -> Tuple[TrainState, LossBundle]:
         device = batch["pos_rx"].device
+        if "ch_idx" in batch:  # int32 from the sampler; indices are int64
+            batch = {**batch, "ch_idx": batch["ch_idx"].long()}
         if isinstance(generator_or_dirs, torch.Tensor):
             dirs = generator_or_dirs
         else:

@@ -4,14 +4,22 @@
     python3 chip_smoke.py [--profile DIR]
 
 Builds the port's CUDA kernels from ``avr_torch/ops/csrc`` (nvcc, cached
-in ``build/avr_torch_kernels/``), holds each kernel against its plain
-PyTorch version at the shapes of the flagship training step, checks the
-card path against the plain CPU path on a small config, then drives the
-port's flagship training step (full width, random weights from a seed)
-and shows that it went through the encode forward and backward kernels
-(the generic scatter kernel is held and timed, but is off that path).
-Prints one JSON object per phase, the ``nvidia-smi`` name/power line, a
-``kernels`` summary, and as its last line ``{"ok": true, "device": {...}}``. Any failed check raises
+in ``build/avr_torch_kernels/``) and drives two paths of the port, each
+at full width with random weights from a seed:
+
+  * the flagship training step (complex field, ``avr_torch/flagship.py``);
+  * the 8-channel array training step of ``configs/avr_synthetic_array.yml``
+    (standard field with channel embeddings and DAS losses) on a synthetic
+    Real_env dataset that the port writes, loads and samples, with the
+    precomputed plan (``train_array``) and once with the streaming plan.
+
+Before each path it holds each kernel against its plain PyTorch version
+at that path's shapes and checks the card against the plain CPU path on a
+small config of the same field variant; after it, it shows that the path
+went through the encode forward and backward kernels (the generic scatter
+kernel is held and timed, but is off both paths). Prints one JSON object
+per phase, the ``nvidia-smi`` name/power line, a ``kernels`` summary, and
+as its last line ``{"ok": true, "device": {...}}``. Any failed check raises
 and the exit code is non-zero. Without a CUDA device it exits with 2 and
 prints no result.
 """
@@ -31,8 +39,16 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
-# Flagship train steps driven on the card; the first one is not steady.
+# Train steps driven on the card per path; the first one is not steady.
 TRAIN_STEPS = 3
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+ARRAY_CONFIG = os.path.join(ROOT, "configs", "avr_synthetic_array.yml")
+# synthetic Real_env groups written for the array path: the last one is
+# the test split, leaving 4 train groups = 32 rows
+ARRAY_GROUPS = 5
+# shell chunk of the array step's streaming run
+STREAMING_SHELL_CHUNK = 8
 
 # Device kernels of a profiled step, grouped by kind: the first kind with
 # a key in the (lower-cased) kernel name.
@@ -103,21 +119,57 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(f"chip_smoke: {what}")
 
 
-def flagship_points(torch, dev, cfg, seed: int):
-    """The flagship step's encoded points: x01 [bs·R·S, 3] in the unit cube."""
+def step_points(torch, dev, cfg, seed: int, lo: float, hi: float):
+    """A train step's encoded streams for batch_size random receivers in
+    [lo, hi)³: the sample points x01 [bs·R·S, 3] and the view directions
+    (1 − dir)/2 [R, 3], in the unit cube."""
     from avr_torch import geometry
     from avr_torch.render.common import make_consts
 
     g = torch.Generator(device=dev).manual_seed(seed)
     rc, bs = cfg.render, cfg.train.batch_size
     consts = make_consts(rc, cfg.model.signal_output_dim, device=dev)
-    rays_o = torch.rand((bs, 3), generator=g, device=dev) * 4 - 2
+    rays_o = lo + torch.rand((bs, 3), generator=g, device=dev) * (hi - lo)
     dirs = geometry.ray_directions(rc.n_azi, rc.n_ele, generator=g, device=dev)
     pts = geometry.ray_points(rays_o, dirs, consts.d_vals)
-    lo = torch.tensor(rc.xyz_min, device=dev)
-    hi = torch.tensor(rc.xyz_max, device=dev)
-    pts_n = geometry.normalize_points(pts, lo, hi)
-    return ((pts_n + 1.0) / 2.0).reshape(-1, 3).contiguous()
+    box_lo = torch.tensor(rc.xyz_min, device=dev)
+    box_hi = torch.tensor(rc.xyz_max, device=dev)
+    pts_n = geometry.normalize_points(pts, box_lo, box_hi)
+    x = ((pts_n + 1.0) / 2.0).reshape(-1, 3).contiguous()
+    return x, ((1.0 - dirs) / 2.0).contiguous()
+
+
+def flagship_points(torch, dev, cfg, seed: int):
+    """The flagship step's encoded points: x01 [bs·R·S, 3] in the unit cube."""
+    return step_points(torch, dev, cfg, seed, -2.0, 2.0)[0]
+
+
+def array_config():
+    """The array recipe, as the yml has it."""
+    from avr_torch.config import AVRConfig
+
+    return AVRConfig.from_yaml(ARRAY_CONFIG)
+
+
+def corner_updates(torch, he, levels, x, g):
+    """The encode backward as a stream of row updates: corner rows idx
+    (int32 [M]) from the kernels' shared header, and (a function that
+    fills) upd [M, F] = w·g per corner, level-major as ``corners`` gives."""
+    idx, w = he.corners(levels, x)
+    N, F = x.shape[0], g.shape[-1]
+    upd = torch.empty((idx.shape[0], F), device=x.device)
+    groups, start = [], 0
+    for lo, hi in he.level_groups(levels):
+        n = (hi - lo) * levels[lo].K * N
+        groups.append((lo, hi, levels[lo].K, start, n))
+        start += n
+
+    def mul():
+        for lo, hi, K, s0, n in groups:
+            torch.mul(w[s0 : s0 + n].view(hi - lo, K, N, 1), g[:, lo:hi].permute(1, 0, 2).unsqueeze(1),
+                      out=upd[s0 : s0 + n].view(hi - lo, K, N, F))
+
+    return idx, upd, mul
 
 
 def phase_scatter(torch, dev, static, x, results):
@@ -327,20 +379,7 @@ def phase_encode_bwd(torch, dev, cfg, static, x, results):
                 g_s = g[:, sl].contiguous()
                 main["by_level_kind_device_ms"][name] = device_ms(lambda: he.encode_backward(g_s, lvs, x, n))
             # The route this kernel replaced, timed once for the record (fp32).
-            idx, w = he.corners(levels, x)
-            upd = torch.empty((M, F), device=dev)
-            groups = []
-            start = 0
-            for lo, hi in he.level_groups(levels):
-                n = (hi - lo) * levels[lo].K * N
-                groups.append((lo, hi, levels[lo].K, start, n))
-                start += n
-
-            def mul():
-                for lo, hi, K, s0, n in groups:
-                    torch.mul(w[s0 : s0 + n].view(hi - lo, K, N, 1), g[:, lo:hi].permute(1, 0, 2).unsqueeze(1),
-                              out=upd[s0 : s0 + n].view(hi - lo, K, N, F))
-
+            idx, upd, mul = corner_updates(torch, he, levels, x, g)
             buf = torch.zeros((n_rows, F), device=dev)
 
             def via_index_add():
@@ -353,7 +392,7 @@ def phase_encode_bwd(torch, dev, cfg, static, x, results):
                 "mul_then_scatter_kernel_ms": time_ms(lambda: (mul(), hs.scatter_add_rows(idx, upd, n_rows))),
                 "mul_then_index_add_ms": time_ms(via_index_add),
             }
-            del idx, w, upd, buf
+            del idx, upd, buf
         del g
     # an odd level count leaves the last level group partial, 650 points the last point tile
     odd, xs = levels[:5], x[:650].contiguous()
@@ -380,37 +419,134 @@ def phase_encode_bwd(torch, dev, cfg, static, x, results):
     emit(out)
 
 
-def phase_small_parity(torch, dev):
-    """The card path (kernels) against the CPU path (plain versions) on the
-    small flagship config, fp32: forward 5e-5 and table gradients 1e-4 of scale."""
+def phase_encode_array(torch, dev, fst, x, view, results):
+    """The encode pair against its plain versions at the array step's two
+    large streams: ``pos`` (bs·R·S ray points, F = 2, in the bf16 rule the
+    step runs and in fp32) and ``dir`` (the R view directions through the
+    2^20-row table, fp32 as the step runs it). Forward fp32 within 1e-6 of
+    scale and bf16 bit-equal; backward within 1e-5 of scale. The backward's
+    library route is ``index_add_`` of the fp32 corner update stream (the
+    stream itself not timed); the generic scatter kernel is held and timed
+    on the same stream."""
+    from avr_torch.ops import hash_scatter as hs
+    from avr_torch.ops import hashgrid_encode as he
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out = {"phase": "encode_array"}
+    for name, xs, modes in (("pos", x, ("bf16", "fp32")), ("dir", view, ("fp32",))):
+        grid = fst.encodings[name].grid
+        levels, n_rows = grid.levels, grid.padded_entries
+        N, L, F = xs.shape[0], len(levels), grid.n_features
+        M = N * sum(lv.K for lv in levels)
+        table = torch.randn((n_rows, F), generator=gen, device=dev)
+        g = torch.randn((N, L, F), generator=gen, device=dev)
+        rows = int(torch.unique(he.corners(levels, xs)[0]).numel())
+        f_ms, f_by = bound(N * 12 + rows * F * 4 + N * L * F * 4, M * 2 * F)
+        b_ms, b_by = bound(N * 12 + N * L * F * 4 + n_rows * F * 4, M * 2 * F)
+        rec = {"N": N, "levels": L, "F": F, "n_rows": n_rows, "corner_rows": M, "distinct_rows": rows}
+        plain_iters = 3 if name == "pos" else 5
+        for mode in modes:
+            rb = mode == "bf16"
+            ref = he.encode_rows_reference(table, levels, xs, round_bf16=rb)
+            got = he.encode_rows(table, levels, xs, round_bf16=rb)
+            torch.cuda.synchronize()
+            scale, err = float(ref.abs().max()), float((got - ref).abs().max())
+            if rb:
+                n_diff = int((got != ref).sum())
+                check(n_diff == 0, f"{name} encode forward bf16: {n_diff} values differ (max {err})")
+            else:
+                check(err <= 1e-6 * scale, f"{name} encode forward fp32: max|err| {err} > 1e-6 × {scale}")
+            del ref, got
+            rec[f"forward_{mode}"] = {
+                "max_abs_err": err, "scale": scale,
+                "kernel_ms": time_ms(lambda: he.encode_rows(table, levels, xs, round_bf16=rb)),
+                "device_ms": device_ms(lambda: he.encode_rows(table, levels, xs, round_bf16=rb)),
+                "plain_ms": time_ms(lambda: he.encode_rows_reference(table, levels, xs, round_bf16=rb),
+                                    iters=plain_iters, warmup=1),
+                "bound_ms": f_ms, "bound_by": f_by, "library_ms": None,
+            }
+            ref = he.encode_backward_reference(g, levels, xs, n_rows, round_bf16=rb)
+            got = he.encode_backward(g, levels, xs, n_rows, round_bf16=rb)
+            torch.cuda.synchronize()
+            scale, err = float(ref.abs().max()), float((got - ref).abs().max())
+            check(err <= 1e-5 * scale, f"{name} encode backward {mode}: max|err| {err} > 1e-5 × {scale}")
+            del got
+            if not rb:
+                ref_fp32 = ref
+            del ref
+            rec[f"backward_{mode}"] = {
+                "max_abs_err": err, "scale": scale,
+                "kernel_ms": time_ms(lambda: he.encode_backward(g, levels, xs, n_rows, round_bf16=rb)),
+                "device_ms": device_ms(lambda: he.encode_backward(g, levels, xs, n_rows, round_bf16=rb)),
+                "plain_ms": time_ms(
+                    lambda: he.encode_backward_reference(g, levels, xs, n_rows, round_bf16=rb),
+                    iters=plain_iters, warmup=1,
+                ),
+                "bound_ms": b_ms, "bound_by": b_by,
+            }
+        # the fp32 update stream: index_add_ (the library route) and kernel A
+        idx, upd, mul = corner_updates(torch, he, levels, xs, g)
+        mul()
+        buf = torch.zeros((n_rows, F), device=dev)
+
+        def library():
+            buf.zero_()
+            buf.index_add_(0, idx, upd)
+
+        lib_ms = time_ms(library, iters=5)
+        for mode in modes:
+            rec[f"backward_{mode}"]["library_ms"] = lib_ms
+        got = hs.scatter_add_rows(idx, upd, n_rows)
+        torch.cuda.synchronize()
+        scale, err = float(ref_fp32.abs().max()), float((got - ref_fp32).abs().max())
+        check(err <= 1e-5 * scale, f"kernel A at the {name} stream: max|err| {err} > 1e-5 × {scale}")
+        a_ms, a_by = bound(M * 4 + M * F * 4 + n_rows * F * 4, M * F)
+        rec["kernel_a_scatter"] = {
+            "max_abs_err": err, "scale": scale,
+            "kernel_ms": time_ms(lambda: hs.scatter_add_rows(idx, upd, n_rows), iters=5),
+            "plain_ms": time_ms(lambda: hs.scatter_add_rows_reference(idx, upd, n_rows), iters=3, warmup=1),
+            "library_ms": lib_ms, "bound_ms": a_ms, "bound_by": a_by,
+        }
+        del idx, upd, mul, buf, got, ref_fp32, table, g
+        out[name] = rec
+    results["encode_array"] = {k: v for k, v in out.items() if k != "phase"}
+    emit(out)
+
+
+def card_vs_cpu(torch, dev, cfg, dataset_type: str, box, ch_idx=None, **render_kw):
+    """render_fused on the card (kernels) against the CPU (plain versions)
+    on a small config, fp32, from the same params (tables N(0,1), so that
+    relative tolerances mean something) and inputs: forward within 5e-5 and
+    the gradient of every leaf within 1e-4 of scale. ``box`` (lo, hi) is
+    where receivers and transmitters are drawn."""
     from avr_torch import geometry
-    from avr_torch.flagship import flagship_config
     from avr_torch.models import field
     from avr_torch.render.common import make_consts
     from avr_torch.render.fused import render_fused
     from avr_torch.train.state import named_leaves, tree_map
 
-    cfg = flagship_config(small=True)
-    fst = field.build_field(cfg.model, "RAF")
+    fst = field.build_field(cfg.model, dataset_type)
     params_cpu = field.init(torch.Generator().manual_seed(3), fst, device="cpu")
-    # N(0,1) tables so that relative tolerances mean something
     gen = torch.Generator().manual_seed(4)
     for k, t in params_cpu["enc"].items():
         params_cpu["enc"][k] = torch.randn(t.shape, generator=gen)
-    bs = cfg.train.batch_size
+    bs, (lo, hi) = cfg.train.batch_size, box
     inputs = {
-        "rays_o": torch.rand((bs, 3), generator=gen) * 4 - 2,
-        "position_tx": torch.rand((bs, 3), generator=gen) * 4 - 2,
-        "direction_tx": torch.nn.functional.normalize(torch.randn((bs, 3), generator=gen), dim=-1),
-        "dirs": geometry.ray_directions(cfg.render.n_azi, cfg.render.n_ele, generator=gen, device="cpu"),
+        "rays_o": lo + torch.rand((bs, 3), generator=gen) * (hi - lo),
+        "position_tx": lo + torch.rand((bs, 3), generator=gen) * (hi - lo),
     }
+    if fst.variant == "complex":
+        inputs["direction_tx"] = torch.nn.functional.normalize(torch.randn((bs, 3), generator=gen), dim=-1)
+    inputs["dirs"] = geometry.ray_directions(cfg.render.n_azi, cfg.render.n_ele, generator=gen, device="cpu")
+    if ch_idx is not None:
+        inputs["ch_idx"] = ch_idx
     target = torch.randn((bs, cfg.model.signal_output_dim // 2 + 1, 2), generator=gen)
     res = {}
     for d in ("cpu", dev):
         params = tree_map(lambda t: t.detach().to(d).requires_grad_(True), params_cpu)
         out = render_fused(
             params, fst, make_consts(cfg.render, cfg.model.signal_output_dim, device=d), cfg.render,
-            **{k: v.to(d) for k, v in inputs.items()}, compute_dtype=None, shell_chunk=2,
+            **{k: v.to(d) for k, v in inputs.items()}, compute_dtype=None, **render_kw,
         )
         torch.mean((out - target.to(d)) ** 2).backward()
         res[str(d)] = (out.detach().cpu(), {n: t.grad.cpu() for n, t in named_leaves(params)})
@@ -420,8 +556,105 @@ def phase_small_parity(torch, dev):
     grad = {n: float((g_dev[n] - g_cpu[n]).abs().max() / (g_cpu[n].abs().max() + 1e-30)) for n in g_cpu}
     worst = max(grad, key=grad.get)
     check(grad[worst] <= 1e-4, f"card vs CPU gradient of {worst}: {grad[worst]} > 1e-4 of scale")
-    emit({"phase": "small_card_vs_cpu", "forward_rel_err": fwd, "worst_grad": worst,
-          "worst_grad_rel_err": grad[worst]})
+    return {
+        "forward_rel_err": fwd, "worst_grad": worst, "worst_grad_rel_err": grad[worst], "leaves": len(grad),
+    }
+
+
+def phase_small_parity(torch, dev):
+    """The card path against the CPU path on the small flagship config."""
+    from avr_torch.flagship import flagship_config
+
+    rec = card_vs_cpu(torch, dev, flagship_config(small=True), "RAF", (-2.0, 2.0), shell_chunk=2)
+    emit({"phase": "small_card_vs_cpu", **rec})
+
+
+def small_standard_config(mode: str):
+    """The array recipe with every width cut (4 levels of 2^8 rows, MLPs
+    32 wide, 20 rays × 4 shells, T = 128); channel "add" as the recipe has
+    it, or "concat" into all three subnets with the recipe's widths."""
+    from avr_torch.config import EncodingConfig, MLPConfig
+
+    cfg = array_config()
+    rc, m = cfg.render, cfg.model
+    rc.n_samples, rc.n_azi, rc.n_ele = 4, 6, 3
+    m.signal_output_dim = 128
+    enc = EncodingConfig(n_levels=4, log2_hashmap_size=8, base_resolution=4, per_level_scale=1.5)
+    m.pos_encoding_sigma = m.dir_encoding_sig = m.tx_encoding_sig = enc
+    for name in ("sigma_encoder_network", "sigma_decoder_network", "signal_network"):
+        setattr(m, name, MLPConfig(n_neurons=32, n_hidden_layers=2))
+    if mode == "concat":
+        ch = m.channel_embed
+        ch.connection_type = "concat"
+        ch.is_sigma_encoder = ch.is_sigma_decoder = ch.is_signal_network = True
+    return cfg
+
+
+def phase_small_standard(torch, dev):
+    """The card path against the CPU path on the small standard config,
+    channel add and concat, precomputed and streaming plans, one 8-mic group."""
+    out = {"phase": "small_standard_card_vs_cpu"}
+    for mode in ("add", "concat"):
+        cfg = small_standard_config(mode)
+        for plan, budget in (("precomputed", 4_000_000), ("streaming", 0)):
+            out[f"{mode}_{plan}"] = card_vs_cpu(
+                torch, dev, cfg, cfg.path.dataset_type, (0.5, 2.5), ch_idx=torch.arange(8),
+                shell_chunk=2, point_budget=budget,
+            )
+    emit(out)
+
+
+def drive_steps(torch, dev, step, state, batches, gen):
+    """One train step per batch, timed on the host clock to a synchronise.
+    The kernels' launch counts are set to 0 just before and read just
+    after. Checks finite loss terms in every step, the step count, and that
+    every param moved. Returns (state, step_ms, bundles, launches, peak
+    memory)."""
+    from avr_torch.ops import hash_scatter as hs
+    from avr_torch.ops import hashgrid_encode as he
+    from avr_torch.train.state import named_leaves
+
+    before = {n: t.clone() for n, t in named_leaves(state.params)}
+    step0 = int(state.step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    hs.scatter_add_rows.launches = 0
+    he.encode_rows.launches = 0
+    he.encode_backward.launches = 0
+    step_ms, bundles = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, bundle = step(state, batch, gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        bundles.append({k: float(v) for k, v in bundle.as_dict().items()})
+    launches = {
+        "scatter": hs.scatter_add_rows.launches, "encode": he.encode_rows.launches,
+        "encode_bwd": he.encode_backward.launches,
+    }
+    peak = torch.cuda.max_memory_allocated(dev)
+    for i, b in enumerate(bundles):
+        bad = [k for k, v in b.items() if v != v or v in (float("inf"), float("-inf"))]
+        check(not bad, f"train step {i}: non-finite loss terms {bad}")
+    check(int(state.step) == step0 + len(batches), f"step count {int(state.step)} != {step0 + len(batches)}")
+    unchanged = [n for n, t in named_leaves(state.params) if torch.equal(t, before[n])]
+    check(not unchanged, f"params unchanged by training: {unchanged}")
+    return state, step_ms, bundles, launches, peak
+
+
+def train_record(phase, cfg, step_ms, bundles, launches, peak, **extra):
+    """The printed record of a training phase."""
+    tc, rc = cfg.train, cfg.render
+    n = len(step_ms)
+    steady_ms = sum(step_ms[1:]) / (n - 1) if n > 1 else step_ms[0]
+    return {
+        "phase": phase, "steps": n, "compute_dtype": tc.compute_dtype,
+        "batch": tc.batch_size, "rays": rc.n_rays, "shells": rc.n_samples, "T": cfg.model.signal_output_dim,
+        **extra, "step_ms": step_ms, "steady_ms_per_step": steady_ms,
+        "rays_per_s_fwd_bwd": tc.batch_size * rc.n_rays / (steady_ms / 1e3),
+        "peak_mem_bytes": peak, "launches_per_step": {k: v / n for k, v in launches.items()},
+        "losses_last": bundles[-1],
+    }
 
 
 def phase_train(torch, dev, profile_dir, results):
@@ -429,10 +662,8 @@ def phase_train(torch, dev, profile_dir, results):
     from avr_torch.flagship import flagship_config
     from avr_torch.losses import CriterionConfig
     from avr_torch.models import field
-    from avr_torch.ops import hash_scatter as hs
-    from avr_torch.ops import hashgrid_encode as he
     from avr_torch.render.common import make_consts
-    from avr_torch.train.state import init_state, make_train_step, named_leaves
+    from avr_torch.train.state import init_state, make_train_step
 
     cfg = flagship_config()
     tc, rc = cfg.train, cfg.render
@@ -448,52 +679,110 @@ def phase_train(torch, dev, profile_dir, results):
         "pos_tx": torch.rand((bs, 3), generator=gen, device=dev) * 4 - 2,
         "rot_tx": torch.tensor([[1.0, 0.0, 0.0]], device=dev).repeat(bs, 1),
     }
-    before = {n: t.clone() for n, t in named_leaves(state.params)}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    hs.scatter_add_rows.launches = 0
-    he.encode_rows.launches = 0
-    he.encode_backward.launches = 0
-    step_ms, bundles = [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        state, bundle = step(state, batch, gen)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        bundles.append({k: float(v) for k, v in bundle.as_dict().items()})
-    launches = {
-        "scatter": hs.scatter_add_rows.launches, "encode": he.encode_rows.launches,
-        "encode_bwd": he.encode_backward.launches,
-    }
-    peak = torch.cuda.max_memory_allocated(dev)
-    for i, b in enumerate(bundles):
-        bad = [k for k, v in b.items() if v != v or v in (float("inf"), float("-inf"))]
-        check(not bad, f"train step {i}: non-finite loss terms {bad}")
-    check(int(state.step) == TRAIN_STEPS, f"step count {int(state.step)} != {TRAIN_STEPS}")
-    unchanged = [n for n, t in named_leaves(state.params) if torch.equal(t, before[n])]
-    check(not unchanged, f"params unchanged by training: {unchanged}")
+    state, step_ms, bundles, launches, peak = drive_steps(torch, dev, step, state, [batch] * TRAIN_STEPS, gen)
     # five encodes per step (pos_pair, dir, tx_pos, tx_dir, tx_pos_sig), each
     # one forward and one backward launch; the generic scatter is off the path
     for k in ("encode", "encode_bwd"):
         check(launches[k] == 5 * TRAIN_STEPS, f"kernel {k}: {launches[k]} launches in {TRAIN_STEPS} steps")
     results["launches"] = launches
-    steady_ms = sum(step_ms[1:]) / (TRAIN_STEPS - 1)
-    emit({
-        "phase": "train_flagship", "steps": TRAIN_STEPS, "compute_dtype": tc.compute_dtype,
-        "batch": bs, "rays": rc.n_rays, "shells": rc.n_samples, "T": cfg.model.signal_output_dim,
-        "step_ms": step_ms, "steady_ms_per_step": steady_ms,
-        "rays_per_s_fwd_bwd": bs * rc.n_rays / (steady_ms / 1e3),
-        "peak_mem_bytes": peak, "launches_per_step": {k: v / TRAIN_STEPS for k, v in launches.items()},
-        "losses_last": bundles[-1],
-    })
+    rec = train_record("train_flagship", cfg, step_ms, bundles, launches, peak)
+    emit(rec)
     if profile_dir:
-        profile_step(torch, step, state, batch, gen, steady_ms, profile_dir)
+        profile_step(torch, step, state, batch, gen, rec["steady_ms_per_step"], profile_dir, "train_step")
 
 
-def profile_step(torch, step, state, batch, gen, steady_ms: float, profile_dir: str) -> None:
+def array_batches(torch, dev, cfg):
+    """The array path's data: a synthetic Real_env dataset written by the
+    port (image-source rooms, seed 0) into a temporary directory, loaded,
+    and drawn as whole 8-mic groups, each batch moved to the card."""
+    import tempfile
+
+    from avr_torch.data import BatchSampler, load_dataset
+    from avr_torch.data.synthetic import RoomSpec, write_real_env_dataset
+
+    rc, T = cfg.render, cfg.model.signal_output_dim
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        write_real_env_dataset(d, RoomSpec(speed=rc.speed, fs=rc.fs, seq_len=T), ARRAY_GROUPS, seed=0)
+        data = load_dataset(d, cfg.path.dataset_type, seq_len=T, fs=rc.fs)
+    sampler = BatchSampler(data, cfg.train.batch_size, seed=cfg.train.seed, group8=True)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()} for b in sampler.epoch()]
+    check(len(data) == 8 * (ARRAY_GROUPS - 1), f"{len(data)} train rows")
+    group = torch.arange(8, dtype=torch.int32)
+    for b in batches:
+        check(torch.equal(b["ch_idx"].cpu(), group.repeat(len(b["ch_idx"]) // 8)), "a batch is not whole 8-mic groups")
+    return batches, {"rows": len(data), "batches": len(batches), "data_s": time.perf_counter() - t0}
+
+
+def phase_train_array(torch, dev, profile_dir, results):
+    """The array recipe's training step at full width, bf16 compute, on
+    port-written data: ``train_array`` runs TRAIN_STEPS steps with the
+    precomputed plan (3 encodes per step, pos, dir and tx, each one forward
+    and one backward launch), ``train_array_streaming`` one step of the same
+    model and batch with the streaming plan, whose launch count the phase
+    derives from the plan's structure."""
+    import dataclasses
+
+    from avr_torch.losses import CriterionConfig
+    from avr_torch.models import field
+    from avr_torch.render.common import make_consts
+    from avr_torch.render.fused import _pick_chunk
+    from avr_torch.train.state import init_state, make_train_step, named_leaves
+
+    cfg = array_config()
+    tc, rc = cfg.train, cfg.render
+    batches, data_rec = array_batches(torch, dev, cfg)
+    fst = field.build_field(cfg.model, cfg.path.dataset_type)
+    check(fst.variant == "standard" and fst.enc_mode == fst.sig_mode == "add", "the array recipe's field")
+    consts = make_consts(rc, cfg.model.signal_output_dim, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = init_state(gen, fst, tc, device=dev)
+    crit = CriterionConfig.from_configs(tc, rc)
+    check(crit.das_reg_loss_weight > 0, "the recipe's DAS regression weight")
+    emb = [n for n, _ in named_leaves(state.params) if ".emb." in n]
+    check(len(emb) == 6, f"channel embeddings of the injected layers: {emb}")
+    points = tc.batch_size * rc.n_rays * rc.n_samples
+    check(points <= tc.point_budget, f"{points} points take the streaming plan")
+    step, _ = make_train_step(fst, consts, rc, tc, crit)
+    run = [batches[i % len(batches)] for i in range(TRAIN_STEPS)]
+    state, step_ms, bundles, launches, peak = drive_steps(torch, dev, step, state, run, gen)
+    for k in ("encode", "encode_bwd"):
+        check(launches[k] == 3 * TRAIN_STEPS, f"kernel {k}: {launches[k]} launches in {TRAIN_STEPS} steps")
+    check(launches["scatter"] == 0, f"kernel A: {launches['scatter']} launches")
+    check(all(b["das_reg"] > 0 for b in bundles), "the DAS regression term is zero")
+    results["array_launches"] = launches
+    rec = train_record("train_array", cfg, step_ms, bundles, launches, peak, points=points,
+                       shell_chunk=tc.shell_chunk, emb_leaves=emb, data=data_rec)
+    emit(rec)
+    if profile_dir:
+        steady_ms = rec["steady_ms_per_step"]
+        profile_step(torch, step, state, run[0], gen, steady_ms, profile_dir, "train_array_step")
+
+    # The streaming plan: per shell chunk, one pos encode in the attenuation
+    # pass and one in the signal pass, each recomputed once more in the
+    # backward when checkpointed; dir and tx encode once per step.
+    tcs = dataclasses.replace(tc, point_budget=0, shell_chunk=STREAMING_SHELL_CHUNK)
+    n_chunks = rc.n_samples // _pick_chunk(rc.n_samples, tcs.shell_chunk)
+    n_ctx = sum(fst.encodings[k].otype == "hashgrid" for k in ("dir", "tx"))
+    expected = {
+        "scatter": 0,
+        "encode": n_ctx + 2 * n_chunks * (2 if tcs.remat else 1),
+        "encode_bwd": n_ctx + 2 * n_chunks,
+    }
+    step_s, _ = make_train_step(fst, consts, rc, tcs, crit)
+    state, s_ms, s_bundles, s_launches, s_peak = drive_steps(torch, dev, step_s, state, run[:1], gen)
+    check(s_launches == expected, f"streaming step launches {s_launches}, the plan predicts {expected}")
+    results["array_streaming_launches"] = s_launches
+    emit(train_record("train_array_streaming", cfg, s_ms, s_bundles, s_launches, s_peak,
+                      point_budget=tcs.point_budget, shell_chunk=tcs.shell_chunk, n_chunks=n_chunks,
+                      predicted_launches=expected))
+
+
+def profile_step(torch, step, state, batch, gen, steady_ms: float, profile_dir: str, name: str) -> None:
     """One more train step under torch.profiler: the kernel table and the
-    trace go to ``profile_dir``; prints the step's device kernel time, its
-    share of the unprofiled steady step, and the kernels that take it."""
+    trace go to ``profile_dir`` as ``{name}_kernels.txt`` and
+    ``{name}_trace.json``; prints the step's device kernel time, its share
+    of the unprofiled steady step, and the kernels that take it."""
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(profile_dir, exist_ok=True)
@@ -501,11 +790,11 @@ def profile_step(torch, step, state, batch, gen, steady_ms: float, profile_dir: 
         step(state, batch, gen)
         torch.cuda.synchronize()
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-    with open(os.path.join(profile_dir, "train_step_kernels.txt"), "w") as f:
+    with open(os.path.join(profile_dir, f"{name}_kernels.txt"), "w") as f:
         f.write(table)
-    trace = os.path.join(profile_dir, "train_step_trace.json")
+    trace = os.path.join(profile_dir, f"{name}_trace.json")
     prof.export_chrome_trace(trace)
-    emit({"phase": "profile", "written": profile_dir, **trace_summary(trace, steady_ms)})
+    emit({"phase": f"profile_{name}", "written": profile_dir, **trace_summary(trace, steady_ms)})
 
 
 def trace_summary(trace_path: str, steady_ms: float) -> dict:
@@ -533,6 +822,29 @@ def trace_summary(trace_path: str, steady_ms: float) -> dict:
         },
         "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10]),
     }
+
+
+def array_entry(results, key: str) -> dict:
+    """The array path's numbers of one kernel for the ``kernels`` line:
+    launches per step (precomputed plan, and the streaming step), and per
+    stream its time, error, plain, bound and library numbers (fp32, with
+    the step's bf16 mode beside where it has one)."""
+    entry = {
+        "launches_per_step": results["array_launches"][key] / TRAIN_STEPS,
+        "streaming_launches_per_step": results["array_streaming_launches"][key],
+    }
+    for stream, rec in results["encode_array"].items():
+        if key == "scatter":
+            entry[stream] = rec["kernel_a_scatter"]
+            continue
+        kind = "forward" if key == "encode" else "backward"
+        fp, bf = rec[f"{kind}_fp32"], rec.get(f"{kind}_bf16", {})
+        entry[stream] = {
+            "N": rec["N"], "n_rows": rec["n_rows"], **fp, "ms": fp["kernel_ms"],
+            "bf16_ms": bf.get("kernel_ms"), "bf16_device_ms": bf.get("device_ms"),
+            "bf16_max_abs_err": bf.get("max_abs_err"),
+        }
+    return entry
 
 
 def main() -> int:
@@ -584,6 +896,14 @@ def main() -> int:
     phase_small_parity(torch, dev)
     phase_train(torch, dev, args.profile, results)
 
+    acfg = array_config()
+    afst = field.build_field(acfg.model, acfg.path.dataset_type)
+    ax, aview = step_points(torch, dev, acfg, seed=0, lo=0.5, hi=2.5)
+    phase_encode_array(torch, dev, afst, ax, aview, results)
+    del ax, aview
+    phase_small_standard(torch, dev)
+    phase_train_array(torch, dev, args.profile, results)
+
     kernels = (  # name, source, the TPU code it replaces, key of its results and launch count
         ("hash_scatter_add_rows", "hash_scatter.cu", "avr_tpu/ops/hash_scatter.py:872", "scatter"),
         ("hashgrid_encode_fwd", "hashgrid_encode.cu", "avr_tpu/models/hashgrid.py:434", "encode"),
@@ -599,6 +919,7 @@ def main() -> int:
             "bf16_max_abs_err": results[key].get("bf16_max_abs_err"),
             "plain_ms": results[key]["plain_ms"], "bound_ms": results[key]["bound_ms"],
             "bound_by": results[key]["bound_by"], "library_ms": results[key]["library_ms"],
+            "array": array_entry(results, key),
         }
         for name, src, replaces, key in kernels
     ]})

@@ -1,4 +1,5 @@
-"""Parity of avr_torch's MLP and complex field with the JAX package (CPU).
+"""Parity of avr_torch's MLP and complex field with the JAX package (CPU);
+the standard variant is in test_torch_field_standard.py.
 
 Params come from the JAX ``init`` with the hash tables refilled with
 N(0,1) numpy values, and reach the port through ``params_from_jax``.
@@ -138,8 +139,3 @@ def test_sigma_query_attenuation_uses_config_slope():
     assert float(ta.min()) >= 0.0
     assert _rel(tf_.detach().numpy(), jf) < 1e-5
     assert _rel(ta.detach().numpy(), ja) < 1e-5
-
-
-def test_standard_variant_is_refused():
-    with pytest.raises(NotImplementedError):
-        tfield.build_field(tiny_model_config(), "MeshRIR")

@@ -144,14 +144,3 @@ def test_render_fused_bf16_matches_jax_loosely():
         )
     assert np.isfinite(tout.numpy()).all()
     assert _rel(tout.numpy(), jout) < 3e-2
-
-
-def test_render_fused_streaming_plan_not_ported():
-    _, _, tparams, tfst = complex_setup()
-    rc, rays_o, tx, tx_view, dirs, _ = _scene()
-    with pytest.raises(NotImplementedError):
-        tfused.render_fused(
-            tparams, tfst, tcommon.make_consts(rc, 64, device="cpu"), rc,
-            torch.from_numpy(rays_o), torch.from_numpy(tx), direction_tx=torch.from_numpy(tx_view),
-            dirs=torch.from_numpy(dirs), point_budget=0,
-        )

@@ -35,6 +35,7 @@ from avr_tpu.render.common import make_consts as jmake_consts
 from avr_tpu.train import state as jstate_lib
 from conftest import tiny_render_config
 from test_torch_field import complex_setup
+from test_torch_field_standard import standard_setup
 
 from avr_torch.convert import params_to_numpy
 from avr_torch.losses import CriterionConfig as TCrit
@@ -53,21 +54,34 @@ def _tc(**kw):
     return TrainConfig(**base)
 
 
-def _batch(rng, T, wave_scale=1e-2):
-    bs = 2
+def _batch(rng, T, wave_scale=1e-2, group=False):
+    """A complex-variant batch of 2 (with ``rot_tx``), or with ``group`` one
+    8-microphone group (``ch_idx`` 0..7, int32 as the sampler gives it)."""
+    bs = 8 if group else 2
     d = rng.normal(size=(bs, 3))
-    return {
+    batch = {
         "wave": (rng.normal(size=(bs, T // 2 + 1, 2)) * wave_scale).astype(np.float32),
         "pos_rx": rng.uniform(-2, 2, (bs, 3)).astype(np.float32),
         "pos_tx": rng.uniform(-2, 2, (bs, 3)).astype(np.float32),
-        "rot_tx": (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32),
     }
+    if group:
+        batch["ch_idx"] = np.arange(8, dtype=np.int32)
+    else:
+        batch["rot_tx"] = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    return batch
 
 
-def _run_both(tc, wave_scale=1e-2, n_steps=2, nan_wave=False, energy_weight=0.0):
-    jparams, jfst, tparams, tfst = complex_setup("hybridc:2", T=64)
+def _run_both(tc, wave_scale=1e-2, n_steps=2, nan_wave=False, energy_weight=0.0, standard=None,
+              **crit_extra):
+    """Steps of both frameworks from the same params on the same batches:
+    the complex variant, or with ``standard`` (a channel mode) the standard
+    one on 8-microphone groups."""
+    if standard is None:
+        jparams, jfst, tparams, tfst = complex_setup("hybridc:2", T=64)
+    else:
+        jparams, jfst, tparams, tfst = standard_setup(standard, T=64)
     rc = tiny_render_config()
-    crit_kw = dict(fs=rc.fs, speed=rc.speed, energy_loss_weight=energy_weight)
+    crit_kw = dict(fs=rc.fs, speed=rc.speed, energy_loss_weight=energy_weight, **crit_extra)
     jstep, jrender = jstate_lib.make_train_step(jfst, jmake_consts(rc, 64), rc, tc, JCrit(**crit_kw))
     tstep, _ = tstate_lib.make_train_step(tfst, tmake_consts(rc, 64, device="cpu"), rc, tc, TCrit(**crit_kw))
     jp = jax.tree_util.tree_map(jnp.asarray, jparams)
@@ -76,7 +90,7 @@ def _run_both(tc, wave_scale=1e-2, n_steps=2, nan_wave=False, energy_weight=0.0)
     rng = np.random.default_rng(11)
     out = []
     for i in range(n_steps):
-        batch = _batch(rng, 64, wave_scale)
+        batch = _batch(rng, 64, wave_scale, group=standard is not None)
         if nan_wave:
             batch["wave"][0, 3, 0] = np.nan
         key = jax.random.PRNGKey(100 + i)
