@@ -245,12 +245,20 @@ def _coerce(klass, known: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def _extra(raw: Dict[str, Any], names) -> Dict[str, Any]:
+    """Unknown keys, with those of a nested ``extra`` dict (as ``to_yaml``
+    writes them) merged back in, so that a YAML backup loads as the config
+    it was written from."""
+    extra = dict(raw.get("extra") or {})
+    extra.update({k: v for k, v in raw.items() if k not in names and k != "extra"})
+    return extra
+
+
 def _build(klass, raw: Dict[str, Any]):
     """Construct a dataclass from a dict, routing unknown keys into .extra."""
     names = {f.name for f in dataclasses.fields(klass)} - {"extra"}
     known = _coerce(klass, {k: v for k, v in raw.items() if k in names})
-    extra = {k: v for k, v in raw.items() if k not in names}
-    return klass(**known, extra=extra)
+    return klass(**known, extra=_extra(raw, names))
 
 
 def _build_render(raw: Dict[str, Any]) -> RenderConfig:
@@ -296,4 +304,4 @@ def _build_model(raw: Dict[str, Any]) -> ModelConfig:
         if k in names:
             scalars[k] = raw.pop(k)
     kwargs.update(_coerce(ModelConfig, scalars))
-    return ModelConfig(**kwargs, extra=raw)
+    return ModelConfig(**kwargs, extra=_extra(raw, names))

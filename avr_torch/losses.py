@@ -39,6 +39,13 @@ class MRSTFTConfig:
     eps: float = 1e-8
 
 
+# The 3-resolution variant used by the evaluation metrics
+# (reference/utils/metric.py:31).
+MRSTFT_METRIC = MRSTFTConfig(
+    fft_sizes=(512, 256, 128), win_lengths=(300, 150, 75), hop_sizes=(60, 30, 8)
+)
+
+
 def multi_resolution_stft_loss(
     x: torch.Tensor, y: torch.Tensor, cfg: MRSTFTConfig = MRSTFTConfig()
 ) -> torch.Tensor:

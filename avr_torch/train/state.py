@@ -84,6 +84,12 @@ def cosine_lr(tc: TrainConfig, step: torch.Tensor) -> torch.Tensor:
     return tc.lr * ((1 - alpha) * cosine + alpha)
 
 
+def current_lr(tc: TrainConfig, step: int) -> float:
+    """The rate ``apply_optimizer`` applies at ``step``, on the host: the
+    same ``cosine_lr``, so the logged rate cannot drift from the applied one."""
+    return float(cosine_lr(tc, torch.tensor(step)))
+
+
 def init_state(
     generator: Optional[torch.Generator], fstatic, tc: TrainConfig, device="cuda", params=None,
 ) -> TrainState:

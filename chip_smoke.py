@@ -4,20 +4,28 @@
     python3 chip_smoke.py [--profile DIR]
 
 Builds the port's CUDA kernels from ``avr_torch/ops/csrc`` (nvcc, cached
-in ``build/avr_torch_kernels/``) and drives two paths of the port, each
+in ``build/avr_torch_kernels/``) and drives three paths of the port, each
 at full width with random weights from a seed:
 
-  * the flagship training step (complex field, ``avr_torch/flagship.py``);
+  * the flagship training step (complex field, ``avr_torch/flagship.py``):
+    3 steps, 5 + 5 encode launches per step;
   * the 8-channel array training step of ``configs/avr_synthetic_array.yml``
     (standard field with channel embeddings and DAS losses) on a synthetic
     Real_env dataset that the port writes, loads and samples, with the
-    precomputed plan (``train_array``) and once with the streaming plan.
+    precomputed plan (``train_array``: 3 steps, 3 + 3 launches per step) and
+    once with the streaming plan (1 step, 34 + 18);
+  * the same recipe through the training runner and the CLI
+    (``runner_array``): ``AVRRunner.train`` for 4 iterations with
+    checkpoints and validations every 2 (3 + 3 launches per iteration,
+    3 + 0 per validation batch), a bit-equal resume on the card and a
+    restore on the CPU, ``python -m avr_torch render`` from the checkpoint
+    (bit-equal to ``make_render_fn``) and ``rotate`` at 90° steps.
 
 Before each path it holds each kernel against its plain PyTorch version
 at that path's shapes and checks the card against the plain CPU path on a
 small config of the same field variant; after it, it shows that the path
 went through the encode forward and backward kernels (the generic scatter
-kernel is held and timed, but is off both paths). Prints one JSON object
+kernel is held and timed, but is off every path). Prints one JSON object
 per phase, the ``nvidia-smi`` name/power line, a ``kernels`` summary, and
 as its last line ``{"ok": true, "device": {...}}``. Any failed check raises
 and the exit code is non-zero. Without a CUDA device it exits with 2 and
@@ -41,6 +49,10 @@ FP32_OPS_PER_S = 67e12
 
 # Train steps driven on the card per path; the first one is not steady.
 TRAIN_STEPS = 3
+# Iterations of the runner on the array recipe (checkpoints and
+# validations every 2), and timed render calls after it.
+RUNNER_ITERATIONS = 4
+RENDER_REPEATS = 5
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ARRAY_CONFIG = os.path.join(ROOT, "configs", "avr_synthetic_array.yml")
@@ -82,10 +94,18 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+# Profiler sessions of device_ms whose trace held no device events, and
+# the device_ms values that fell back to CUDA events because of them.
+PROFILER_MISSES = {"empty_sessions": 0, "event_timed": 0}
+
+
+def device_ms(fn, iters: int = 10, warmup: int = 2, attempts: int = 3) -> float:
     """Mean device kernel time of ``fn`` (torch.profiler, kernels and
     memsets summed): no host gaps, for launches too small to keep the card
-    busy back to back."""
+    busy back to back. Now and then a profiler session on the card returns
+    a trace without device events: such a session is run again, and after
+    ``attempts`` empty ones the time is taken with CUDA events instead
+    (``time_ms``, host gaps included). Both are counted in PROFILER_MISSES."""
     import tempfile
 
     import torch
@@ -94,18 +114,22 @@ def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    kern = [e for e in events if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memset")]
-    check(bool(kern), "the profiler recorded no device kernels")
-    return sum(e["dur"] for e in kern) / 1e3 / iters
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        kern = [e for e in events if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memset")]
+        if kern:
+            return sum(e["dur"] for e in kern) / 1e3 / iters
+        PROFILER_MISSES["empty_sessions"] += 1
+    PROFILER_MISSES["event_timed"] += 1
+    return time_ms(fn, iters=iters, warmup=0)
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -618,9 +642,7 @@ def drive_steps(torch, dev, step, state, batches, gen):
     step0 = int(state.step)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    hs.scatter_add_rows.launches = 0
-    he.encode_rows.launches = 0
-    he.encode_backward.launches = 0
+    reset_launch_counts()
     step_ms, bundles = [], []
     for batch in batches:
         t0 = time.perf_counter()
@@ -628,10 +650,7 @@ def drive_steps(torch, dev, step, state, batches, gen):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         bundles.append({k: float(v) for k, v in bundle.as_dict().items()})
-    launches = {
-        "scatter": hs.scatter_add_rows.launches, "encode": he.encode_rows.launches,
-        "encode_bwd": he.encode_backward.launches,
-    }
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     for i, b in enumerate(bundles):
         bad = [k for k, v in b.items() if v != v or v in (float("inf"), float("-inf"))]
@@ -753,6 +772,7 @@ def phase_train_array(torch, dev, profile_dir, results):
     results["array_launches"] = launches
     rec = train_record("train_array", cfg, step_ms, bundles, launches, peak, points=points,
                        shell_chunk=tc.shell_chunk, emb_leaves=emb, data=data_rec)
+    results["array_steady_ms"] = rec["steady_ms_per_step"]
     emit(rec)
     if profile_dir:
         steady_ms = rec["steady_ms_per_step"]
@@ -776,6 +796,225 @@ def phase_train_array(torch, dev, profile_dir, results):
     emit(train_record("train_array_streaming", cfg, s_ms, s_bundles, s_launches, s_peak,
                       point_budget=tcs.point_budget, shell_chunk=tcs.shell_chunk, n_chunks=n_chunks,
                       predicted_launches=expected))
+
+
+def launch_counts():
+    """The kernels' launch counts, by the keys of the ``kernels`` line."""
+    from avr_torch.ops import hash_scatter as hs
+    from avr_torch.ops import hashgrid_encode as he
+
+    return {"scatter": hs.scatter_add_rows.launches, "encode": he.encode_rows.launches,
+            "encode_bwd": he.encode_backward.launches}
+
+
+def reset_launch_counts() -> None:
+    from avr_torch.ops import hash_scatter as hs
+    from avr_torch.ops import hashgrid_encode as he
+
+    hs.scatter_add_rows.launches = he.encode_rows.launches = he.encode_backward.launches = 0
+
+
+def since(before: dict) -> dict:
+    now = launch_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def read_jsonl(path: str) -> dict:
+    """{tag: {step: value}} of a runner's metrics.jsonl."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            r = json.loads(line)
+            out.setdefault(r["tag"], {})[r["step"]] = r["value"]
+    return out
+
+
+def equal_states(torch, a, b) -> bool:
+    from avr_torch.train.state import named_leaves
+
+    trees = lambda s: (s.params, s.opt_state.mu, s.opt_state.nu)  # noqa: E731
+    leaves = [(x, y) for ta, tb in zip(trees(a), trees(b)) for (_, x), (_, y) in zip(named_leaves(ta), named_leaves(tb))]
+    return bool(leaves) and int(a.step) == int(b.step) and all(
+        torch.equal(x.to(y.device), y) for x, y in leaves
+    )
+
+
+def phase_runner_array(torch, dev, cfg, results) -> None:
+    """The port's runner and CLI on the array recipe ``cfg`` at full width,
+    on port-written data of ARRAY_GROUPS groups: train RUNNER_ITERATIONS
+    iterations with checkpoints and validations every 2
+    (``AVRRunner.train``), resume on the card and on the CPU, ``python -m
+    avr_torch render`` from the checkpoint and ``rotate``, in a temporary
+    directory that is removed at the end. Only the schedule and the log
+    directory of ``cfg`` are overridden."""
+    import copy
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from avr_torch import __main__ as cli
+    from avr_torch.data.synthetic import RoomSpec, write_real_env_dataset
+    from avr_torch.eval.rotate import make_render_fn
+    from avr_torch.train import runner as runner_lib
+
+    rc, tc, T = cfg.render, cfg.train, cfg.model.signal_output_dim
+    tmp = tempfile.mkdtemp(prefix="avr_runner_array_")
+    try:
+        d = os.path.join(tmp, "data")
+        write_real_env_dataset(d, RoomSpec(speed=rc.speed, fs=rc.fs, seq_len=T), ARRAY_GROUPS, seed=0)
+        tc.total_iterations, tc.save_freq, tc.val_freq, tc.log_freq = RUNNER_ITERATIONS, 2, 2, 1
+        cfg.path.logdir = os.path.join(tmp, "logs")
+        runner = runner_lib.AVRRunner(cfg, d, device=dev)
+        bs, n_test, n_train = tc.batch_size, len(runner.test_data), len(runner.train_data)
+
+        # instrument the runner: launches and seconds per validate and save,
+        # seconds in metric_cal
+        vals, saves, metric_s = [], [], [0.0]
+        validate, save, metric_cal = runner.validate, runner.save_checkpoint, runner_lib.metric_cal
+
+        def timed_validate(it, mode_set="test", dirs=None):
+            c0, m0, t0 = launch_counts(), metric_s[0], time.perf_counter()
+            out = validate(it, mode_set, dirs)
+            vals.append({"it": it, "mode": mode_set, "s": time.perf_counter() - t0,
+                         "metric_cal_s": metric_s[0] - m0, "launches": since(c0)})
+            return out
+
+        def timed_save():
+            t0 = time.perf_counter()
+            step = save()
+            saves.append(time.perf_counter() - t0)
+            return step
+
+        def timed_metric_cal(*a, **k):
+            t0 = time.perf_counter()
+            out = metric_cal(*a, **k)
+            metric_s[0] += time.perf_counter() - t0
+            return out
+
+        runner.validate, runner.save_checkpoint, runner_lib.metric_cal = timed_validate, timed_save, timed_metric_cal
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            runner.train()
+        finally:
+            runner_lib.metric_cal = metric_cal
+        torch.cuda.synchronize(dev)
+        train_s = time.perf_counter() - t0
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+
+        check(int(runner.state.step) == RUNNER_ITERATIONS, f"runner step {int(runner.state.step)}")
+        check(runner.checkpoint_steps() == [2, 4], f"checkpoints {runner.checkpoint_steps()}")
+        m = read_jsonl(os.path.join(runner.logdir, "metrics.jsonl"))
+        loss = m.get("train_loss", {})
+        check(sorted(loss) == [1, 2, 3, 4] and all(np.isfinite(list(loss.values()))), f"train_loss {loss}")
+        for mode in ("test", "train"):
+            for it in (2, 4):
+                got = {k: m.get(f"{mode}_metric/{k}", {}).get(it) for k in runner_lib.METRIC_KEYS}
+                check(all(v is not None and np.isfinite(v) for v in got.values()), f"{mode}_metric@{it}: {got}")
+        for it in (2, 4):
+            with np.load(os.path.join(runner.logdir, "val_result", f"val_iter{it:06d}.npz")) as z:
+                p = z["pred_sig"]
+                check(p.shape == (n_test, T // 2 + 1) and p.dtype == np.complex64 and np.isfinite(p).all()
+                      and "ch_idx" in z.files, f"val_iter{it:06d}.npz pred_sig {p.shape} {p.dtype}")
+        # the validations' launches: 3 forward and no backward per render batch
+        val_launch = {k: sum(v["launches"][k] for v in vals) for k in launches}
+        for v in vals:
+            n_rows = n_test if v["mode"] == "test" else min(n_train, runner_lib.TRAIN_VAL_BATCHES * bs)
+            n_b = -(-n_rows // bs)
+            want = {"scatter": 0, "encode": 3 * n_b, "encode_bwd": 0}
+            check(v["launches"] == want, f"validate {v['mode']}@{v['it']}: launches {v['launches']} != {want}")
+            v["batches"] = n_b
+        train_launch = {k: launches[k] - val_launch[k] for k in launches}
+        want = {"scatter": 0, "encode": 3 * RUNNER_ITERATIONS, "encode_bwd": 3 * RUNNER_ITERATIONS}
+        check(train_launch == want, f"training iterations' launches {train_launch} != {want}")
+
+        # resume: on the device bit-equal, on the CPU equal params
+        cfg2 = copy.deepcopy(cfg)
+        cfg2.train.load_ckpt = True
+        resumed = runner_lib.AVRRunner(cfg2, d, device=dev)
+        check(equal_states(torch, resumed.state, runner.state), "resumed state differs from the trained one")
+        t0 = time.perf_counter()
+        resumed.load_checkpoint()
+        torch.cuda.synchronize(dev)
+        restore_s = time.perf_counter() - t0
+        on_cpu = runner_lib.AVRRunner(cfg2, d, device="cpu")
+        check(equal_states(torch, on_cpu.state, runner.state), "CPU restore differs from the trained state")
+        t0 = time.perf_counter()
+        on_cpu.load_checkpoint()
+        restore_cpu_s = time.perf_counter() - t0
+        del on_cpu
+        ckpt_bytes = os.path.getsize(os.path.join(runner.logdir, "ckpts", "4", runner_lib.CHECKPOINT_FILE))
+
+        # render from the checkpoint through the CLI, against make_render_fn
+        data = resumed.test_data
+        q = os.path.join(tmp, "queries.npz")
+        np.savez(q, pos_rx=data.pos_rx, pos_tx=data.pos_tx, ch_idx=data.ch_idx)
+        out = os.path.join(tmp, "irs.npz")
+        conf = os.path.join(runner.logdir, "avr_conf.yml")
+        c0 = launch_counts()
+        cli.main(["render", "--config", conf, "--queries", q, "--out", out, "--time_domain",
+                  "--device", str(dev)])
+        render_launch = since(c0)
+        render_fn = make_render_fn(resumed)
+        rows = (data.pos_rx, data.pos_tx, data.ch_idx)
+        ref = render_fn(*rows)
+        with np.load(out) as z:
+            spec, ir = z["spec"], z["ir"]
+        check(spec.shape == (n_test, T // 2 + 1) and spec.dtype == np.complex64 and np.isfinite(spec).all(),
+              f"render spec {spec.shape} {spec.dtype}")
+        check(np.array_equal(spec, ref), f"render CLI differs from make_render_fn: max {np.abs(spec - ref).max()}")
+        check(ir.shape == (n_test, T), f"render ir {ir.shape}")
+        want = {"scatter": 0, "encode": 3 * -(-n_test // bs), "encode_bwd": 0}
+        check(render_launch == want, f"render launches {render_launch} != {want}")
+        render_fn(*rows)
+        t0 = time.perf_counter()
+        for _ in range(RENDER_REPEATS):
+            render_fn(*rows)  # ends in a copy to the host
+        render_ms = (time.perf_counter() - t0) / RENDER_REPEATS * 1e3
+
+        # rotate the test groups by 90° steps and re-render them
+        rot_dir = os.path.join(tmp, "rotate")
+        c0 = launch_counts()
+        cli.main(["rotate", "--config", conf, "--dataset_dir", d, "--deg_step", "90", "--out_dir", rot_dir,
+                  "--device", str(dev)])
+        rotate_launch = since(c0)
+        with np.load(os.path.join(rot_dir, "val_rotate_pred.npz")) as z:
+            rot_pred, n_rot = z["pred_sig"], len(z["pred_deg"])
+        check(os.path.exists(os.path.join(rot_dir, "summary.csv")) and np.isfinite(rot_pred).all(),
+              "rotate outputs")
+        check(rotate_launch["encode"] == 3 * n_rot and rotate_launch["encode_bwd"] == 0,
+              f"rotate launches {rotate_launch} for {n_rot} rotations")
+
+        sps = m["samples_per_sec"]
+        iter_ms = {it: bs / sps[it] * 1e3 for it in sorted(sps)}
+        # the interval logged at `it` holds iteration it alone unless it-1 saved or validated
+        steady = [iter_ms[it] for it in iter_ms if it > 1 and (it - 1) % tc.save_freq and (it - 1) % tc.val_freq]
+        val_s = {mode: [v["s"] for v in vals if v["mode"] == mode] for mode in ("test", "train")}
+        rec = {
+            "phase": "runner_array", "iterations": RUNNER_ITERATIONS, "batch": bs, "rays": rc.n_rays,
+            "shells": rc.n_samples, "T": T, "compute_dtype": tc.compute_dtype,
+            "rows": {"train": n_train, "test": n_test}, "train_s": train_s,
+            "ms_per_iteration": iter_ms, "steady_ms_per_iteration": sum(steady) / len(steady),
+            "validate_s": val_s, "validate_batches": {v["mode"]: v["batches"] for v in vals},
+            "metric_cal_share": sum(v["metric_cal_s"] for v in vals) / sum(v["s"] for v in vals),
+            "checkpoint_bytes": ckpt_bytes, "save_s": saves, "restore_s": restore_s,
+            "restore_cpu_s": restore_cpu_s, "render_ms_per_batch": render_ms,
+            "peak_mem_bytes": peak, "launches": launches, "train_launches": train_launch,
+            "launches_per_iteration": {k: v / RUNNER_ITERATIONS for k, v in train_launch.items()},
+            "validation_launches": val_launch,
+            "launches_per_validation_batch": {k: v / sum(x["batches"] for x in vals) for k, v in val_launch.items()},
+            "render_launches": render_launch, "rotate": {"rotations": n_rot, "launches": rotate_launch},
+            "test_metric_4": {k: m[f"test_metric/{k}"][4] for k in runner_lib.METRIC_KEYS},
+            "train_loss": loss, "train_array_steady_ms_per_step": results["array_steady_ms"],
+        }
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    results["runner"] = rec
+    emit(rec)
 
 
 def profile_step(torch, step, state, batch, gen, steady_ms: float, profile_dir: str, name: str) -> None:
@@ -903,6 +1142,8 @@ def main() -> int:
     del ax, aview
     phase_small_standard(torch, dev)
     phase_train_array(torch, dev, args.profile, results)
+    phase_runner_array(torch, dev, array_config(), results)
+    emit({"phase": "profiler_misses", **PROFILER_MISSES})
 
     kernels = (  # name, source, the TPU code it replaces, key of its results and launch count
         ("hash_scatter_add_rows", "hash_scatter.cu", "avr_tpu/ops/hash_scatter.py:872", "scatter"),
@@ -920,6 +1161,11 @@ def main() -> int:
             "plain_ms": results[key]["plain_ms"], "bound_ms": results[key]["bound_ms"],
             "bound_by": results[key]["bound_by"], "library_ms": results[key]["library_ms"],
             "array": array_entry(results, key),
+            "runner_array": {
+                "launches": results["runner"]["launches"][key],
+                "launches_per_iteration": results["runner"]["launches_per_iteration"][key],
+                "launches_per_validation_batch": results["runner"]["launches_per_validation_batch"][key],
+            },
         }
         for name, src, replaces, key in kernels
     ]})
