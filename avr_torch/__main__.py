@@ -8,8 +8,10 @@ Commands mirror the reference's per-script entry points:
   rotate     — eval_rotate_doa_avr.py (--device)
   synth      — synthetic shoebox dataset generation
   tools      — tools/meshrir_split.py, check_data.py
+  hpo        — optuna_avr_runner*.py  (hyper-parameter search; --device;
+               --pop K trains K runtime-variant trials as one population)
 
-Not ported yet (they exit with code 2): hpo, whitenoise, make-configs, plot.
+Not ported yet (they exit with code 2): whitenoise, make-configs, plot.
 
 ``--device`` defaults to ``cuda`` and raises without a CUDA device; pass
 ``--device cpu`` to run the kernels' plain versions on the CPU.
@@ -19,7 +21,7 @@ from __future__ import annotations
 
 import sys
 
-NOT_PORTED = ("hpo", "whitenoise", "make-configs", "plot")
+NOT_PORTED = ("whitenoise", "make-configs", "plot")
 
 
 def main(argv=None) -> None:
@@ -107,6 +109,10 @@ def main(argv=None) -> None:
         print(f"wrote {a.format} dataset ({a.n}) to {a.out}")
     elif cmd == "tools":
         _tools_cli(rest)
+    elif cmd == "hpo":
+        from avr_torch.hpo.runner import main as hpo_main
+
+        hpo_main(rest)
     elif cmd in NOT_PORTED:
         print(f"avr_torch: {cmd!r} is not ported yet; run `python -m avr_tpu {cmd}`")
         sys.exit(2)

@@ -9,7 +9,9 @@ and returns the port's params: the same tree of float32 tensors on
 ``state_from_jax`` carries a whole JAX ``TrainState`` (after
 ``jax.device_get``: params, the optax chain state and the step) into the
 port's ``TrainState``, Adam moments included; ``state_to_numpy`` is its
-inverse as a dict of numpy trees. Nothing here imports JAX.
+inverse as a dict of numpy trees. A JAX population state (every leaf and
+the step stacked on a leading K) carries over with its leading axis, as
+the port's population state. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -54,7 +56,8 @@ def _adam_state(tree):
 
 
 def state_from_jax(state_np, device="cuda") -> TrainState:
-    """The port's TrainState from a JAX TrainState after ``jax.device_get``.
+    """The port's TrainState from a JAX TrainState after ``jax.device_get``,
+    or a population state from a K-stacked one (step [K]).
 
     The Adam count is optax's bias-correction count; the port derives it
     from the step (``apply_optimizer`` uses step + 1), so the two must agree.
@@ -63,9 +66,10 @@ def state_from_jax(state_np, device="cuda") -> TrainState:
     adam = _adam_state(state_np.opt_state)
     if adam is None:
         raise ValueError("state_from_jax: no ScaleByAdamState (count, mu, nu) in the optimizer state")
-    step = int(np.asarray(state_np.step))
-    if int(np.asarray(adam.count)) != step:
-        raise ValueError(f"state_from_jax: Adam count {int(np.asarray(adam.count))} != step {step}")
+    step = np.asarray(state_np.step, dtype=np.int32)
+    count = np.asarray(adam.count)
+    if count.shape != step.shape or not np.array_equal(count, step):
+        raise ValueError(f"state_from_jax: Adam count {count.tolist()} != step {step.tolist()}")
     return TrainState(
         params_from_jax(state_np.params, device),
         AdamState(params_from_jax(adam.mu, device), params_from_jax(adam.nu, device)),
@@ -74,10 +78,11 @@ def state_from_jax(state_np, device="cuda") -> TrainState:
 
 
 def state_to_numpy(state: TrainState) -> dict:
-    """``{"params", "mu", "nu"}`` as numpy trees and ``"step"`` as an int."""
+    """``{"params", "mu", "nu"}`` as numpy trees and ``"step"`` as an int
+    (a list of K ints for a population state)."""
     return {
         "params": params_to_numpy(state.params),
         "mu": params_to_numpy(state.opt_state.mu),
         "nu": params_to_numpy(state.opt_state.nu),
-        "step": int(state.step),
+        "step": state.step.tolist(),
     }

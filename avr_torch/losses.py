@@ -171,10 +171,20 @@ def energy_decay_curve(time_sig: torch.Tensor) -> torch.Tensor:
 
 
 def criterion(
-    pred_sig: torch.Tensor, ori_sig: torch.Tensor, cfg: CriterionConfig
+    pred_sig: torch.Tensor, ori_sig: torch.Tensor, cfg: CriterionConfig, weights=None
 ) -> Tuple[LossBundle, torch.Tensor, torch.Tensor]:
     """The weighted loss bank. pred_sig/ori_sig: [bs, F, 2] or complex [bs, F].
-    Returns (LossBundle, ori_time, pred_time)."""
+    Returns (LossBundle, ori_time, pred_time).
+
+    ``weights``: runtime overrides of the loss weights (0-d tensors keyed by
+    the CriterionConfig field name; other keys are ignored), as the JAX
+    package's ``criterion(..., weights=)`` takes them. Whether the DAS branch
+    exists still comes from ``cfg``: a zero runtime weight on an active
+    branch multiplies it by zero.
+    """
+    def w(name):
+        return weights[name] if weights is not None and name in weights else getattr(cfg, name)
+
     pred_c = to_complex(pred_sig)
     ori_c = to_complex(ori_sig)
     l1 = lambda a, b: torch.mean(torch.abs(a - b))  # noqa: E731
@@ -182,15 +192,15 @@ def criterion(
     pred_time = torch.fft.irfft(pred_c, dim=-1)
     ori_time = torch.fft.irfft(ori_c, dim=-1)
 
-    spec = (l1(pred_c.real, ori_c.real) + l1(pred_c.imag, ori_c.imag)) * cfg.spec_loss_weight
-    amplitude = l1(torch.abs(pred_c), torch.abs(ori_c)) * cfg.amplitude_loss_weight
+    spec = (l1(pred_c.real, ori_c.real) + l1(pred_c.imag, ori_c.imag)) * w("spec_loss_weight")
+    amplitude = l1(torch.abs(pred_c), torch.abs(ori_c)) * w("amplitude_loss_weight")
     pa, oa = torch.angle(pred_c), torch.angle(ori_c)
-    angle = (l1(torch.cos(pa), torch.cos(oa)) + l1(torch.sin(pa), torch.sin(oa))) * cfg.angle_loss_weight
-    time = l1(ori_time, pred_time) * cfg.time_loss_weight
-    energy = l1(energy_decay_curve(ori_time), energy_decay_curve(pred_time)) * cfg.energy_loss_weight
+    angle = (l1(torch.cos(pa), torch.cos(oa)) + l1(torch.sin(pa), torch.sin(oa))) * w("angle_loss_weight")
+    time = l1(ori_time, pred_time) * w("time_loss_weight")
+    energy = l1(energy_decay_curve(ori_time), energy_decay_curve(pred_time)) * w("energy_loss_weight")
     multi = (
         multi_resolution_stft_loss(ori_time[:, None, :], pred_time[:, None, :])
-        * cfg.multistft_loss_weight
+        * w("multistft_loss_weight")
     )
 
     zero = torch.zeros((), dtype=pred_time.dtype, device=pred_time.device)
@@ -208,7 +218,7 @@ def criterion(
             target = torch.argmax(power_ori, dim=-1)  # [G]
             picked = torch.gather(power_pred, -1, target[:, None])[:, 0]
             ce = torch.logsumexp(power_pred, dim=-1) - picked
-            das_ce = torch.mean(ce) * cfg.das_ce_loss_weight
+            das_ce = torch.mean(ce) * w("das_ce_loss_weight")
         if cfg.das_reg_loss_weight > 0:
             angles = torch.deg2rad(torch.arange(0.0, 360.0, 1.0, device=pred_c.device))
             wp = torch.softmax(cfg.beta * power_pred, dim=-1)
@@ -218,7 +228,7 @@ def criterion(
             das_reg = torch.mean(
                 torch.abs(torch.sin(pred_ang) - torch.sin(true_ang))
                 + torch.abs(torch.cos(pred_ang) - torch.cos(true_ang))
-            ) * cfg.das_reg_loss_weight
+            ) * w("das_reg_loss_weight")
 
     return (
         LossBundle(spec, amplitude, angle, time, energy, multi, das_reg, das_ce),

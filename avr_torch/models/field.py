@@ -26,6 +26,10 @@ network.
 
 All inputs are [−1,1] box coordinates, mapped to the unit cube with
 (x+1)/2.
+
+Population training: every leaf of ``params`` may carry a leading trial
+axis K (``n_trials``). The query points, directions and channels stay
+shared, and every output then carries the leading K.
 """
 
 from __future__ import annotations
@@ -226,6 +230,12 @@ def init(generator: Optional[torch.Generator], static: FieldStatic, device="cuda
     return params
 
 
+def n_trials(params: Dict) -> int:
+    """K for params stacked over K trials (population training), else 0."""
+    w0 = params["sigma_encoder"]["w"][0]
+    return w0.shape[0] if w0.dim() == 3 else 0
+
+
 def _enc(params: Dict, static: FieldStatic, name: str, x01: torch.Tensor, compute_dtype=None):
     if name in ("pos", "pos_sig") and "pos_pair" in params["enc"]:
         a, b = hashgrid.encode_pair_fused(
@@ -233,9 +243,12 @@ def _enc(params: Dict, static: FieldStatic, name: str, x01: torch.Tensor, comput
             compute_dtype=compute_dtype,
         )
         return a if name == "pos" else b
-    return _enc_apply(
-        params["enc"].get(name), static.encodings[name], x01, compute_dtype=compute_dtype
-    )
+    st = static.encodings[name]
+    out = _enc_apply(params["enc"].get(name), st, x01, compute_dtype=compute_dtype)
+    K = n_trials(params)
+    if K and st.otype != "hashgrid":  # a parameter-free encoding, the same for every trial
+        out = out.expand(K, *out.shape)
+    return out
 
 
 def _to01(x: torch.Tensor) -> torch.Tensor:
@@ -253,7 +266,7 @@ def _if_add(mode: str, ch_idx):
 
 def _concat_emb(params, name: str, ch_idx: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """The concat embedding rows of ``ch_idx``, broadcast to like's leading dims."""
-    emb = params["concat_emb"][name][ch_idx]  # [..., dim]
+    emb = mlp.rows(params["concat_emb"][name], ch_idx)  # [(K,) ..., dim]
     return emb.expand(*like.shape[:-1], emb.shape[-1])
 
 
@@ -283,7 +296,7 @@ def _sigma_branch(params, static, pos_enc, tx_pos_enc, compute_dtype):
     )
     h = mlp._matmul(pos_enc, w_pos, compute_dtype) + mlp._matmul(tx_pos_enc, w_tx, compute_dtype)
     if static.sigma_encoder.use_bias:
-        h = h + params["sigma_encoder"]["b"][0]
+        h = h + mlp.per_trial(params["sigma_encoder"]["b"][0], h)
     sigma_feat = mlp.apply_tail(
         params["sigma_encoder"], static.sigma_encoder, h, compute_dtype=compute_dtype
     )
@@ -400,7 +413,8 @@ def signal_context(
     dirs [R, 3] (view = −dir), tx [B, 3] normalized, tx_view [B, 3]
     (complex), ch_idx [B] (standard, concat mode: its embedding's part is
     folded here once per batch element). Returns (h_ray [R, W],
-    h_batch [B, W]); the bias is folded into h_batch.
+    h_batch [B, W]), each with a leading K for K trials' params; the bias
+    is folded into h_batch.
     """
     slices = mlp.input_weight_slices(params["signal"], _signal_dims(static))
     dir_enc = _enc(params, static, "dir", _to01(-dirs))
@@ -414,10 +428,10 @@ def signal_context(
     else:
         h_batch = mlp._matmul(_enc(params, static, "tx", _to01(tx)), slices[2], compute_dtype)
         if static.sig_mode == "concat" and ch_idx is not None:
-            emb = params["concat_emb"]["sig"][ch_idx]  # [B, dim]
+            emb = mlp.rows(params["concat_emb"]["sig"], ch_idx)  # [(K,) B, dim]
             h_batch = h_batch + mlp._matmul(emb, slices[3], compute_dtype)
     if static.signal.use_bias:
-        h_batch = h_batch + params["signal"]["b"][0]
+        h_batch = h_batch + mlp.per_trial(params["signal"]["b"][0], h_batch)
     return h_ray, h_batch
 
 

@@ -9,6 +9,10 @@ corner's row and weight from them and adds w·grad into the table gradient,
 so neither the gathered [L, K, N, F] rows nor the corner streams are ever
 stored.
 
+A table with a leading trial axis [K, rows, F] (population training)
+encodes the shared points through all K tables in one launch each way
+(``_HashEncodePop``) and returns features with a leading K.
+
 Inputs are points in the unit cube [0,1]³; out-of-range inputs are clamped.
 The TPU level-group splitting, one-hot levels and encode layouts change no
 numbers and are not ported.
@@ -25,7 +29,9 @@ import torch
 
 from avr_torch.config import EncodingConfig
 from avr_torch.device import resolve_device
-from avr_torch.ops.hashgrid_encode import LevelSpec, encode_backward, encode_rows
+from avr_torch.ops.hashgrid_encode import (
+    LevelSpec, encode_backward, encode_backward_pop, encode_rows, encode_rows_pop,
+)
 
 
 @dataclass(frozen=True)
@@ -166,15 +172,37 @@ class _HashEncode(torch.autograd.Function):
         return d_table, None, None, None
 
 
+class _HashEncodePop(torch.autograd.Function):
+    """K tables [K, rows, F] × shared points [N, 3] → features [K, N, L, F]:
+    ``_HashEncode`` with a trial axis (``encode_rows_pop`` /
+    ``encode_backward_pop``, one launch each for all K), saving x alone."""
+
+    @staticmethod
+    def forward(ctx, tables, x, levels, round_bf16):
+        ctx.save_for_backward(x)
+        ctx.levels, ctx.round_bf16, ctx.n_rows = levels, round_bf16, tables.shape[1]
+        return encode_rows_pop(tables, levels, x, round_bf16=round_bf16)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        g = g.to(torch.float32).contiguous()
+        d_tables = encode_backward_pop(g, ctx.levels, x, ctx.n_rows, round_bf16=ctx.round_bf16)
+        return d_tables, None, None, None
+
+
 def _encode_lnf(table, static: HashGridStatic, x, compute_dtype) -> torch.Tensor:
-    """Shared core: x [..., 3] → [N, L, F_table] fp32."""
+    """Shared core: x [..., 3] → [N, L, F_table] fp32, or [K, N, L, F_table]
+    for a table [K, rows, F_table] of K trials."""
     xf = x.reshape(-1, 3).to(torch.float32).contiguous()
     round_bf16 = compute_dtype == torch.bfloat16 and table.dtype == torch.float32
-    return _HashEncode.apply(table, xf, static.levels, round_bf16)
+    fn = _HashEncodePop if table.dim() == 3 else _HashEncode
+    return fn.apply(table, xf, static.levels, round_bf16)
 
 
 def encode(table: torch.Tensor, static: HashGridStatic, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
-    """Encode points x ∈ [0,1]³, shape [..., 3] → [..., L·F].
+    """Encode points x ∈ [0,1]³, shape [..., 3] → [..., L·F] (→ [K, ..., L·F]
+    for a table [K, rows, F] of K trials).
 
     With a bf16 ``compute_dtype`` on an fp32 table the encode follows the
     JAX package's bf16 arithmetic (rows, weights and each product rounded
@@ -183,17 +211,18 @@ def encode(table: torch.Tensor, static: HashGridStatic, x: torch.Tensor, compute
     and every consumer casts it to the compute dtype exactly.
     """
     out = _encode_lnf(table, static, x, compute_dtype)
-    return out.reshape(*x.shape[:-1], static.n_levels * static.n_features)
+    return out.reshape(*table.shape[:-2], *x.shape[:-1], static.n_levels * static.n_features)
 
 
 def encode_pair_fused(
     fused: torch.Tensor, static: HashGridStatic, x: torch.Tensor, compute_dtype=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Two same-geometry tables stored as one [rows, 2F] parameter: one
-    gather forward, one scatter backward. Returns (enc_a, enc_b), each [..., L·F]."""
+    gather forward, one scatter backward. Returns (enc_a, enc_b), each [..., L·F]
+    (with a leading K for a fused table [K, rows, 2F] of K trials)."""
     Fh = static.n_features
-    lead = x.shape[:-1]
-    out = _encode_lnf(fused, static, x, compute_dtype)  # [N, L, 2F]
+    lead = (*fused.shape[:-2], *x.shape[:-1])
+    out = _encode_lnf(fused, static, x, compute_dtype)  # [(K,) N, L, 2F]
     L = static.n_levels
     return (
         out[..., :Fh].reshape(*lead, L * Fh),

@@ -11,6 +11,11 @@ added to the layer's pre-activation (the reference's "add" connection).
 Matmuls run on ``torch.matmul`` (cuBLAS on the card). With a bf16
 ``compute_dtype`` they take bf16 operands, accumulate in fp32 and return
 fp32 — in both directions (``_MatmulCD``).
+
+Population training stacks K trials' params on a leading axis: weights
+[K, d_in, d_out], biases [K, d_out], embeddings [K, ch_num, n]. Inputs then
+carry the same leading K ([K, ..., d_in]) and every product is a batched
+matmul over the trials (``torch.bmm``).
 """
 
 from __future__ import annotations
@@ -90,30 +95,33 @@ def init(generator: Optional[torch.Generator], static: MLPStatic, device="cuda")
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b for 2-D bf16 operands with fp32 accumulation and fp32 output.
+    """a @ b for bf16 operands, 2-D or batched 3-D, with fp32 accumulation
+    and fp32 output.
 
     On the card cuBLAS takes the bf16 operands and writes fp32
     (``out_dtype``). The CPU has no such kernel: there the bf16 values are
     widened first — each product of two bf16 values is exact in fp32, so
     this is the same arithmetic.
     """
+    mm = torch.mm if a.dim() == 2 else torch.bmm
     if a.is_cuda:
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return torch.mm(a.to(torch.float32), b.to(torch.float32))
+        return mm(a, b, out_dtype=torch.float32)
+    return mm(a.to(torch.float32), b.to(torch.float32))
 
 
 class _MatmulCD(torch.autograd.Function):
     """x @ w in ``compute_dtype`` with fp32 accumulation, both directions.
 
-    The backward casts the incoming cotangent to the compute dtype before
-    both products (autocast alone would keep an fp32 cotangent), as the
-    JAX package's ``_matmul_cd`` does.
+    x [..., d_in] @ w [d_in, d_out], or per trial x [K, M, d_in] @
+    w [K, d_in, d_out]. The backward casts the incoming cotangent to the
+    compute dtype before both products (autocast alone would keep an fp32
+    cotangent), as the JAX package's ``_matmul_cd`` does.
     """
 
     @staticmethod
     def forward(ctx, x, w, compute_dtype):
         lead = x.shape[:-1]
-        xc = x.reshape(-1, x.shape[-1]).to(compute_dtype)
+        xc = (x if w.dim() == 3 else x.reshape(-1, x.shape[-1])).to(compute_dtype)
         wc = w.to(compute_dtype)
         ctx.save_for_backward(xc, wc)
         ctx.lead, ctx.dtypes, ctx.cd = lead, (x.dtype, w.dtype), compute_dtype
@@ -122,16 +130,34 @@ class _MatmulCD(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         xc, wc = ctx.saved_tensors
-        gc = g.reshape(-1, g.shape[-1]).to(ctx.cd)
-        dx = _mm_f32(gc, wc.t()).reshape(*ctx.lead, wc.shape[0]).to(ctx.dtypes[0])
-        dw = _mm_f32(xc.t(), gc).to(ctx.dtypes[1])
+        gc = (g if wc.dim() == 3 else g.reshape(-1, g.shape[-1])).to(ctx.cd)
+        dx = _mm_f32(gc, wc.transpose(-1, -2)).reshape(*ctx.lead, wc.shape[-2]).to(ctx.dtypes[0])
+        dw = _mm_f32(xc.transpose(-1, -2), gc).to(ctx.dtypes[1])
         return dx, dw, None
 
 
 def _matmul(x: torch.Tensor, w: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """x [..., d_in] @ w [d_in, d_out]; per trial x [K, ..., d_in] @ w [K, d_in, d_out]."""
+    if w.dim() == 3 and x.dim() != 3:  # fold the dims after K into one
+        out = _matmul(x.reshape(w.shape[0], -1, x.shape[-1]), w, compute_dtype)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
     if compute_dtype is None:
         return torch.matmul(x, w)
     return _MatmulCD.apply(x, w, compute_dtype)
+
+
+def per_trial(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-trial vector [K, d] viewed to broadcast against like [K, ..., d]
+    (a plain [d] vector broadcasts as it is)."""
+    if v.dim() == 1:
+        return v
+    return v.reshape(v.shape[0], *([1] * (like.dim() - 2)), v.shape[-1])
+
+
+def rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` of an embedding table [n, d] → [*idx.shape, d], or per
+    trial of [K, n, d] → [K, *idx.shape, d]."""
+    return table[idx] if table.dim() == 2 else table[:, idx]
 
 
 def apply(
@@ -142,7 +168,7 @@ def apply(
     broadcastable against x's leading dims, or None."""
     h = _matmul(x, params["w"][0], compute_dtype)
     if static.use_bias:
-        h = h + params["b"][0]
+        h = h + per_trial(params["b"][0], h)
     return apply_tail(params, static, h, ch_idx=ch_idx, compute_dtype=compute_dtype)
 
 
@@ -158,21 +184,22 @@ def apply_tail(
         if layer > 0:
             h = _matmul(h, params["w"][layer], compute_dtype)
             if static.use_bias:
-                h = h + params["b"][layer]
+                h = h + per_trial(params["b"][layer], h)
         if layer < n_layers - 1:
             if static.inject and ch_idx is not None:
-                h = h + params["emb"][layer][ch_idx]
+                h = h + rows(params["emb"][layer], ch_idx)
             h = act(h)
     return out_act(h)
 
 
 def input_weight_slices(params: Params, sizes) -> list:
     """Split the first-layer weight rows by input-part sizes: with
-    x = concat(parts), x @ W0 = Σᵢ partᵢ @ W0[rowsᵢ]."""
+    x = concat(parts), x @ W0 = Σᵢ partᵢ @ W0[rowsᵢ] (per trial for a
+    weight [K, d_in, d_out])."""
     slices, start = [], 0
     w0 = params["w"][0]
     for s in sizes:
-        slices.append(w0[start : start + s])
+        slices.append(w0[..., start : start + s, :])
         start += s
-    assert start == w0.shape[0], f"part sizes {sizes} != in_dim {w0.shape[0]}"
+    assert start == w0.shape[-2], f"part sizes {sizes} != in_dim {w0.shape[-2]}"
     return slices

@@ -32,6 +32,18 @@
 // consecutive words, where a warp writing its own level's values would
 // touch 32 sectors per store at a stride of L·F·4 bytes.
 //
+// Trials (population training): n_trials tables of table_rows rows each lie
+// one after another ([K, rows, F], trial-major), and the output is
+// [K, N, L, F]. Every trial reads the same points, so each thread computes
+// its (point, level) corner rows and weights once, keeps them in registers,
+// and loops over the K tables: one corner computation and K gathers. For
+// K = 1 the launch, its grid and its numbers are those of a single table.
+// Taking the trials 2 or 4 at a time, with all their gathers in flight,
+// timed slower on the H100 than this loop, with or without a register cap:
+// the gathers of K tables are bound by the memory system, not by a thread's
+// loads in flight. The layout that would cut them is [rows, K, F], each
+// corner's K rows one run.
+//
 // A corners-only entry point (avr_hashgrid_corners) writes each corner's
 // flat row and weight from the same header, level-major ([K_l, N] blocks,
 // level l starting at N·Σ_{l'<l} K_{l'}). It exists so that the indices can
@@ -61,7 +73,7 @@ __global__ void hashgrid_encode_kernel(const float* __restrict__ x,
                                        const float* __restrict__ table,
                                        const avr::Levels lv,
                                        float* __restrict__ out,
-                                       int64_t n_points) {
+                                       int64_t n_points, int n_trials, int64_t table_rows) {
   extern __shared__ float smem[];
   float* xs = smem;                     // [32, 3]
   float* tile = smem + 3 * kTilePoints;  // [32, rs]
@@ -76,31 +88,49 @@ __global__ void hashgrid_encode_kernel(const float* __restrict__ x,
   for (int e = threadIdx.x; e < 3 * np; e += blockDim.x) xs[e] = x[n0 * 3 + e];
   __syncthreads();
 
-  if (warp < gl && lane < np) {
+  // This thread's corners, computed once for every trial.
+  const bool active = warp < gl && lane < np;
+  int nk = 0;
+  int32_t rows[8];
+  float ws[8];
+  if (active) {
     const avr::Level L = lv.lv[l0 + warp];
-    float acc[F] = {};
-    avr::for_each_corner(L, xs + 3 * lane, [&](int, int32_t r, float w) {
-      float v[F];
-      load_row<F>(table, r, v);
-      const float wv = RB ? avr::bf16_round(w) : w;
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-        const float p = __fmul_rn(RB ? avr::bf16_round(v[f]) : v[f], wv);
-        acc[f] = __fadd_rn(acc[f], RB ? avr::bf16_round(p) : p);
-      }
+    nk = L.K;
+    avr::for_each_corner(L, xs + 3 * lane, [&](int k, int32_t r, float w) {
+      rows[k] = r;
+      ws[k] = RB ? avr::bf16_round(w) : w;
     });
-    float* t = tile + lane * rs + warp * F;
-#pragma unroll
-    for (int f = 0; f < F; ++f) t[f] = RB ? avr::bf16_round(acc[f]) : acc[f];
   }
-  __syncthreads();
 
   const int row = gl * F;
   const int64_t point_stride = (int64_t)lv.n * F;
-  float* o = out + n0 * point_stride + l0 * F;
-  for (int e = threadIdx.x; e < np * row; e += blockDim.x) {
-    const int i = e / row, j = e - i * row;
-    o[i * point_stride + j] = tile[i * rs + j];
+  for (int t = 0; t < n_trials; ++t) {
+    if (active) {
+      const float* tab = table + (int64_t)t * table_rows * F;
+      float acc[F] = {};
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        if (k < nk) {
+          float v[F];
+          load_row<F>(tab, rows[k], v);
+#pragma unroll
+          for (int f = 0; f < F; ++f) {
+            const float p = __fmul_rn(RB ? avr::bf16_round(v[f]) : v[f], ws[k]);
+            acc[f] = __fadd_rn(acc[f], RB ? avr::bf16_round(p) : p);
+          }
+        }
+      }
+      float* tl = tile + lane * rs + warp * F;
+#pragma unroll
+      for (int f = 0; f < F; ++f) tl[f] = RB ? avr::bf16_round(acc[f]) : acc[f];
+    }
+    __syncthreads();
+    float* o = out + ((int64_t)t * n_points + n0) * point_stride + l0 * F;
+    for (int e = threadIdx.x; e < np * row; e += blockDim.x) {
+      const int i = e / row, j = e - i * row;
+      o[i * point_stride + j] = tile[i * rs + j];
+    }
+    __syncthreads();  // the tile is read before the next trial writes it
   }
 }
 
@@ -124,10 +154,10 @@ __global__ void hashgrid_corners_kernel(const float* __restrict__ x, const avr::
 
 template <int F, bool RB>
 void launch(const float* x, const float* table, const avr::Levels& lv, float* out,
-            long long n_points, cudaStream_t s) {
+            long long n_points, int n_trials, long long table_rows, cudaStream_t s) {
   hashgrid_encode_kernel<F, RB>
       <<<avr::tile_grid(n_points, lv.n), 32 * avr::kLevelsPerBlock, avr::tile_smem_bytes(F), s>>>(
-          x, table, lv, out, n_points);
+          x, table, lv, out, n_points, n_trials, table_rows);
 }
 
 }  // namespace
@@ -135,12 +165,14 @@ void launch(const float* x, const float* table, const avr::Levels& lv, float* ou
 // Both entry points return a cudaError_t code (0 = launched).
 //   x      fp32 [n_points, 3] contiguous
 //   meta   int32 [n_levels, 5] in host memory: res, size, offset, hashed, K
-//   table  fp32 [rows, f] contiguous, rows aligned to their width
-//   out    fp32 [n_points, n_levels, f]
+//   table  fp32 [n_trials, table_rows, f] contiguous, rows aligned to their width
+//   out    fp32 [n_trials, n_points, n_levels, f]
 extern "C" int avr_hashgrid_encode(const void* x, const void* table, const int* meta,
                                    void* out, long long n_points, int n_levels, int f,
-                                   int round_bf16, void* stream) {
+                                   int round_bf16, int n_trials, long long table_rows,
+                                   void* stream) {
   if (n_points <= 0) return 0;
+  if (n_trials <= 0 || table_rows <= 0) return (int)cudaErrorInvalidValue;
   avr::Levels lv;
   if (!avr::levels_from_meta(meta, n_levels, &lv)) return (int)cudaErrorInvalidValue;
   if ((n_points + kTilePoints - 1) / kTilePoints > 0x7fffffffLL) {
@@ -153,16 +185,16 @@ extern "C" int avr_hashgrid_encode(const void* x, const void* table, const int* 
   const bool rb = round_bf16 != 0;
   switch (f) {
     case 1:
-      rb ? launch<1, true>(xp, tp, lv, op, n_points, s)
-         : launch<1, false>(xp, tp, lv, op, n_points, s);
+      rb ? launch<1, true>(xp, tp, lv, op, n_points, n_trials, table_rows, s)
+         : launch<1, false>(xp, tp, lv, op, n_points, n_trials, table_rows, s);
       break;
     case 2:
-      rb ? launch<2, true>(xp, tp, lv, op, n_points, s)
-         : launch<2, false>(xp, tp, lv, op, n_points, s);
+      rb ? launch<2, true>(xp, tp, lv, op, n_points, n_trials, table_rows, s)
+         : launch<2, false>(xp, tp, lv, op, n_points, n_trials, table_rows, s);
       break;
     case 4:
-      rb ? launch<4, true>(xp, tp, lv, op, n_points, s)
-         : launch<4, false>(xp, tp, lv, op, n_points, s);
+      rb ? launch<4, true>(xp, tp, lv, op, n_points, n_trials, table_rows, s)
+         : launch<4, false>(xp, tp, lv, op, n_points, n_trials, table_rows, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -18,6 +18,11 @@ bf16 compute (``round_bf16``) follows the JAX package on an fp32 table:
 the forward is bf16(Σ_k bf16(bf16(row_k)·bf16(w_k))), k ascending, summed in
 fp32, and is returned as fp32 holding bf16 values; the backward's corner
 update is bf16(bf16(g)·bf16(w)), summed in fp32.
+
+Population training (K trials in lockstep) encodes the same points through
+K tables ``[K, rows, F]``: ``encode_rows_pop`` and ``encode_backward_pop``
+launch the same two kernels once for all K, each thread computing its
+corners once and serving every table from them.
 """
 
 from __future__ import annotations
@@ -174,6 +179,23 @@ def encode_backward_reference(
     return scatter_add_rows_reference(torch.cat(idxs), torch.cat(upds), n_rows)
 
 
+def encode_rows_pop_reference(
+    tables: torch.Tensor, levels: Sequence[LevelSpec], x: torch.Tensor, round_bf16: bool = False
+) -> torch.Tensor:
+    """Plain version of :func:`encode_rows_pop`: one ``encode_rows_reference``
+    per table, stacked [K, N, L, F]."""
+    return torch.stack([encode_rows_reference(t, levels, x, round_bf16) for t in tables])
+
+
+def encode_backward_pop_reference(
+    g: torch.Tensor, levels: Sequence[LevelSpec], x: torch.Tensor, n_rows: int,
+    round_bf16: bool = False,
+) -> torch.Tensor:
+    """Plain version of :func:`encode_backward_pop`: one
+    ``encode_backward_reference`` per trial, stacked [K, n_rows, F]."""
+    return torch.stack([encode_backward_reference(gk, levels, x, n_rows, round_bf16) for gk in g])
+
+
 # ----------------------------------------------------------------------
 # Kernel wrappers
 # ----------------------------------------------------------------------
@@ -182,12 +204,12 @@ _INT_P = ctypes.POINTER(ctypes.c_int)
 _ARGTYPES = {
     "avr_hashgrid_encode": [ctypes.c_void_p, ctypes.c_void_p, _INT_P, ctypes.c_void_p,
                             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                            ctypes.c_void_p],
+                            ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p],
     "avr_hashgrid_corners": [ctypes.c_void_p, _INT_P, ctypes.c_void_p, ctypes.c_void_p,
                              ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
     "avr_hashgrid_encode_bwd": [ctypes.c_void_p, ctypes.c_void_p, _INT_P, ctypes.c_void_p,
                                 ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                ctypes.c_void_p],
+                                ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p],
 }
 
 
@@ -248,6 +270,37 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _encode(what: str, tables: torch.Tensor, levels, x: torch.Tensor, round_bf16: bool) -> torch.Tensor:
+    """One forward launch over K tables [K, rows, F]: fp32 [K, N, L, F]."""
+    _check(what, levels, x, tables.device, tables.shape[1])
+    F = _check_rows(f"{what} table", tables)
+    K, N, L = tables.shape[0], x.shape[0], len(levels)
+    out = torch.empty((K, N, L, F), dtype=torch.float32, device=tables.device)
+    rc = _fn("hashgrid_encode", "avr_hashgrid_encode")(
+        x.data_ptr(), tables.data_ptr(), _meta(levels), out.data_ptr(), N, L, F,
+        int(round_bf16), K, tables.shape[1], _stream(tables.device),
+    )
+    _raise_on(rc, what)
+    return out
+
+
+def _encode_backward(what: str, g: torch.Tensor, levels, x: torch.Tensor, n_rows: int,
+                     round_bf16: bool) -> torch.Tensor:
+    """One backward launch for K cotangents g [K, N, L, F]: fp32 [K, n_rows, F]."""
+    _check(what, levels, x, g.device, n_rows)
+    K, N, L = g.shape[0], x.shape[0], len(levels)
+    if g.shape[1:3] != (N, L):
+        raise ValueError(f"{what}: need g [K, {N}, {L}, F], got {tuple(g.shape)}")
+    F = _check_rows(f"{what} g", g)
+    d_table = torch.zeros((K, n_rows, F), dtype=torch.float32, device=g.device)
+    rc = _fn("hashgrid_encode_bwd", "avr_hashgrid_encode_bwd")(
+        x.data_ptr(), g.data_ptr(), _meta(levels), d_table.data_ptr(), N, L, F,
+        int(round_bf16), K, n_rows, _stream(g.device),
+    )
+    _raise_on(rc, what)
+    return d_table
+
+
 def encode_rows(
     table: torch.Tensor, levels: Sequence[LevelSpec], x: torch.Tensor, round_bf16: bool = False
 ) -> torch.Tensor:
@@ -257,22 +310,32 @@ def encode_rows(
     to the forward kernel, or the call raises."""
     if table.device.type == "cpu" and x.device.type == "cpu":
         return encode_rows_reference(table, levels, x, round_bf16)
-    _check("encode_rows", levels, x, table.device, table.shape[0])
     if table.dim() != 2:
         raise ValueError(f"encode_rows: need table [rows, F], got {tuple(table.shape)}")
-    F = _check_rows("encode_rows table", table)
-    N, L = x.shape[0], len(levels)
-    out = torch.empty((N, L, F), dtype=torch.float32, device=table.device)
-    rc = _fn("hashgrid_encode", "avr_hashgrid_encode")(
-        x.data_ptr(), table.data_ptr(), _meta(levels), out.data_ptr(), N, L, F,
-        int(round_bf16), _stream(table.device),
-    )
-    _raise_on(rc, "encode_rows")
+    out = _encode("encode_rows", table[None], levels, x, round_bf16)[0]
     encode_rows.launches += 1
     return out
 
 
 encode_rows.launches = 0
+
+
+def encode_rows_pop(
+    tables: torch.Tensor, levels: Sequence[LevelSpec], x: torch.Tensor, round_bf16: bool = False
+) -> torch.Tensor:
+    """:func:`encode_rows` for K trials' tables [K, rows, F] and the shared
+    points x [N, 3]: fp32 [K, N, L, F], one launch for all K. CPU tensors go
+    to the plain version; CUDA ones to the forward kernel, or the call raises."""
+    if tables.device.type == "cpu" and x.device.type == "cpu":
+        return encode_rows_pop_reference(tables, levels, x, round_bf16)
+    if tables.dim() != 3:
+        raise ValueError(f"encode_rows_pop: need tables [K, rows, F], got {tuple(tables.shape)}")
+    out = _encode("encode_rows_pop", tables, levels, x, round_bf16)
+    encode_rows_pop.launches += 1
+    return out
+
+
+encode_rows_pop.launches = 0
 
 
 def encode_backward(
@@ -286,22 +349,33 @@ def encode_backward(
     (atomics)."""
     if g.device.type == "cpu" and x.device.type == "cpu":
         return encode_backward_reference(g, levels, x, n_rows, round_bf16)
-    _check("encode_backward", levels, x, g.device, n_rows)
-    N, L = x.shape[0], len(levels)
-    if g.dim() != 3 or g.shape[:2] != (N, L):
-        raise ValueError(f"encode_backward: need g [{N}, {L}, F], got {tuple(g.shape)}")
-    F = _check_rows("encode_backward g", g)
-    d_table = torch.zeros((n_rows, F), dtype=torch.float32, device=g.device)
-    rc = _fn("hashgrid_encode_bwd", "avr_hashgrid_encode_bwd")(
-        x.data_ptr(), g.data_ptr(), _meta(levels), d_table.data_ptr(), N, L, F,
-        int(round_bf16), _stream(g.device),
-    )
-    _raise_on(rc, "encode_backward")
+    if g.dim() != 3:
+        raise ValueError(f"encode_backward: need g [N, L, F], got {tuple(g.shape)}")
+    d_table = _encode_backward("encode_backward", g[None], levels, x, n_rows, round_bf16)[0]
     encode_backward.launches += 1
     return d_table
 
 
 encode_backward.launches = 0
+
+
+def encode_backward_pop(
+    g: torch.Tensor, levels: Sequence[LevelSpec], x: torch.Tensor, n_rows: int,
+    round_bf16: bool = False,
+) -> torch.Tensor:
+    """Table gradients of :func:`encode_rows_pop` for the cotangents
+    g [K, N, L, F]: fp32 [K, n_rows, F], one launch for all K. CPU tensors go
+    to the plain version; CUDA ones to the backward kernel, or the call raises."""
+    if g.device.type == "cpu" and x.device.type == "cpu":
+        return encode_backward_pop_reference(g, levels, x, n_rows, round_bf16)
+    if g.dim() != 4:
+        raise ValueError(f"encode_backward_pop: need g [K, N, L, F], got {tuple(g.shape)}")
+    d_tables = _encode_backward("encode_backward_pop", g, levels, x, n_rows, round_bf16)
+    encode_backward_pop.launches += 1
+    return d_tables
+
+
+encode_backward_pop.launches = 0
 
 
 def corners(levels: Sequence[LevelSpec], x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

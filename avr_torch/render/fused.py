@@ -20,6 +20,13 @@ With ``remat`` each chunk of either pass runs under
 recomputed in the backward, so live memory stays at one chunk's
 [bs, R, C, T]. In the streaming plan that recomputes the chunk's encodes
 too.
+
+Population training: with params stacked over K trials (leading axis on
+every leaf) the geometry stays shared (points, distances, masks, path
+loss, phase) and the field's outputs carry K. The compositing weights and
+the signal pass fold (K, bs) into one leading axis, broadcasting the
+shared tensors against it without copying them, and the result is
+[K, bs, F, 2]. The plan is chosen by bs·R·S as for one trial, never by K.
 """
 
 from __future__ import annotations
@@ -59,7 +66,8 @@ def render_fused(
     point_budget: int = 4_000_000,
     ray_weights: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Render received IR spectra [bs, F, 2] (real, imag).
+    """Render received IR spectra [bs, F, 2] (real, imag); [K, bs, F, 2]
+    for params stacked over K trials.
 
     rays_o / position_tx / direction_tx: [bs, 3] world receiver position,
     transmitter position and transmitter view (complex variant); ch_idx
@@ -106,7 +114,8 @@ def render_fused(
         params, fstatic, dirs, tx_n, tx_view=direction_tx, ch_idx=ch_idx,
         compute_dtype=compute_dtype,
     )
-    h_extra = h_ray[None, :, None, :] + h_batch[:, None, None, :]  # [bs, R, 1, W]
+    # [(K,) bs, R, 1, W]
+    h_extra = h_ray.unsqueeze(-2).unsqueeze(-4) + h_batch.unsqueeze(-2).unsqueeze(-2)
 
     # pass 1: attenuation (and, precomputed, every per-point feature)
     if precompute:
@@ -114,7 +123,7 @@ def render_fused(
         sigma_feat, attn, psig = field_lib.point_features(
             params, fstatic, pts_n_all, tx=tx_q, ch_idx=ch_b, compute_dtype=compute_dtype
         )
-        attn = attn[..., 0]
+        attn = attn[..., 0]  # [(K,) bs, R, S]
         dist_all = torch.linalg.norm(position_tx[:, None, None, :] - pts_all, dim=-1)  # [bs, R, S]
     else:
         def attn_chunk(d_c):
@@ -122,19 +131,20 @@ def render_fused(
                 params, fstatic, normalized_points(d_c)[1], tx=tx_q, ch_idx=ch_b,
                 compute_dtype=compute_dtype,
             )
-            return a[..., 0]  # [bs, R, C]
+            return a[..., 0]  # [(K,) bs, R, C]
 
         attn = torch.cat([run(attn_chunk, d_vals[s]) for s in chunks()], dim=-1)
-    w = compositing_weights(attn, d_vals)  # [bs, R, S]
+    lead = attn.shape[:-2]  # (bs,), or (K, bs) for K trials
+    w = compositing_weights(attn.reshape(-1, R, S), d_vals)  # [(K·)bs, R, S]
     if ray_weights is not None:
         w = w * ray_weights.to(w.dtype)[None, :, None]
 
     # pass 2: signal tail + ray contraction + spectrum, chunk by chunk
     def spectrum(signal, dist_c, w_c, tail_c, pl_c, ph_re, ph_im):
-        head = head_delay_mask(dist_c, rc.fs, rc.speed, T)
-        masked = signal * head * tail_c[None, None, :, :]
-        y = torch.einsum("brc,brct->bct", w_c, masked)  # [bs, C, T] fp32
-        spec = torch.fft.rfft(y * pl_c[None, :, :], dim=-1)  # [bs, C, F]
+        head = head_delay_mask(dist_c, rc.fs, rc.speed, T)  # [bs, R, C, T], shared
+        masked = signal * head * tail_c[None, None, :, :]  # [(K,) bs, R, C, T]
+        y = torch.einsum("brc,brct->bct", w_c, masked.reshape(-1, *masked.shape[-3:]))  # [(K·)bs, C, T] fp32
+        spec = torch.fft.rfft(y * pl_c[None, :, :], dim=-1)  # [(K·)bs, C, F]
         re = spec.real * ph_re - spec.imag * ph_im
         im = spec.real * ph_im + spec.imag * ph_re
         return re.sum(dim=1), im.sum(dim=1)
@@ -156,18 +166,18 @@ def render_fused(
         dist_c = torch.linalg.norm(position_tx[:, None, None, :] - pts, dim=-1)
         return spectrum(signal, dist_c, *rest)
 
-    acc_re = torch.zeros((bs, F), dtype=torch.float32, device=device)
-    acc_im = torch.zeros((bs, F), dtype=torch.float32, device=device)
+    acc_re = torch.zeros((w.shape[0], F), dtype=torch.float32, device=device)
+    acc_im = torch.zeros((w.shape[0], F), dtype=torch.float32, device=device)
     for s in chunks():
         rest = (
             w[:, :, s], consts.tail_mask[s], consts.pathloss[s], consts.phase_re[s],
             consts.phase_im[s],
         )
         if precompute:
-            psig_c = None if psig is None else psig[:, :, s]
-            re, im = run(precomputed_chunk, sigma_feat[:, :, s], psig_c, dist_all[:, :, s], *rest)
+            psig_c = None if psig is None else psig[..., s, :]
+            re, im = run(precomputed_chunk, sigma_feat[..., s, :], psig_c, dist_all[:, :, s], *rest)
         else:
             re, im = run(streaming_chunk, d_vals[s], *rest)
         acc_re = acc_re + re
         acc_im = acc_im + im
-    return torch.stack([acc_re, acc_im], dim=-1)
+    return torch.stack([acc_re, acc_im], dim=-1).reshape(*lead, F, 2)

@@ -65,6 +65,26 @@ KEEP_CHECKPOINTS = 5
 TRAIN_VAL_BATCHES = 15  # capped train-split validation (reference/avr_runner.py:322-370)
 
 
+def device_batch(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
+    """A sampler's numpy batch as tensors on ``device`` (channels as int64 indices)."""
+    out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+    if "ch_idx" in out:  # int32 from the sampler; indices are int64
+        out["ch_idx"] = out["ch_idx"].long()
+    return out
+
+
+def iteration_generator(seed: int, it: int, device: torch.device) -> torch.Generator:
+    """Iteration ``it``'s direction generator, from (seed + 1, it) alone."""
+    g_seed = (((seed + 1) & 0xFFFFFFFF) << 32) | (it & 0xFFFFFFFF)
+    return torch.Generator(device=device).manual_seed(g_seed)
+
+
+def eval_directions(rc, device: torch.device, eval_seed: int = EVAL_SEED) -> torch.Tensor:
+    """The fixed eval ray directions [R, 3] of ``eval_seed``."""
+    gen = torch.Generator(device=device).manual_seed(eval_seed)
+    return geometry.ray_directions(rc.n_azi, rc.n_ele, generator=gen, device=device)
+
+
 class AVRRunner:
     def __init__(
         self,
@@ -114,9 +134,10 @@ class AVRRunner:
         self.crit = CriterionConfig.from_configs(cfg.train, cfg.render)
         gen = torch.Generator(device=self.device).manual_seed(cfg.train.seed)
         self.state = init_state(gen, self.fstatic, cfg.train, device=self.device)
-        # Torch reads every hyper-parameter at each call, so
-        # train.runtime_hparams (the JAX package's runtime-scalar program)
-        # computes the same numbers on this one path.
+        # With train.runtime_hparams the step takes the JAX package's
+        # runtime-scalar program: its rate formula (cosine_lr_hp), which
+        # rounds differently from the static schedule, and an always-added
+        # weight decay.
         self._step_fn, self._render_fn = make_train_step(
             self.fstatic, self.consts, cfg.render, cfg.train, self.crit
         )
@@ -180,17 +201,6 @@ class AVRRunner:
         return True
 
     # ------------------------------------------------------------------
-    def _device_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device) for k, v in batch.items()}
-        if "ch_idx" in out:  # int32 from the sampler; indices are int64
-            out["ch_idx"] = out["ch_idx"].long()
-        return out
-
-    def _iteration_generator(self, it: int) -> torch.Generator:
-        """This iteration's direction generator, from (train.seed + 1, it) alone."""
-        seed = (((self.cfg.train.seed + 1) & 0xFFFFFFFF) << 32) | (it & 0xFFFFFFFF)
-        return torch.Generator(device=self.device).manual_seed(seed)
-
     def train(self) -> None:
         tc = self.cfg.train
         if len(self.train_sampler) == 0:
@@ -213,7 +223,8 @@ class AVRRunner:
                 for b in pending:
                     host_it += 1
                     self.state, bundle = self._step_fn(
-                        self.state, self._device_batch(b), self._iteration_generator(host_it)
+                        self.state, device_batch(b, self.device),
+                        iteration_generator(tc.seed, host_it, self.device),
                     )
                 pending = []
                 it_prev, it = it, int(self.state.step)  # the iteration's one sync
@@ -255,14 +266,12 @@ class AVRRunner:
     # ------------------------------------------------------------------
     def eval_directions(self, eval_seed: int = EVAL_SEED) -> torch.Tensor:
         """The fixed eval ray directions [R, 3] of ``eval_seed``."""
-        gen = torch.Generator(device=self.device).manual_seed(eval_seed)
-        rc = self.cfg.render
-        return geometry.ray_directions(rc.n_azi, rc.n_ele, generator=gen, device=self.device)
+        return eval_directions(self.cfg.render, self.device, eval_seed)
 
     def render_batch(self, batch: Dict[str, np.ndarray], dirs: torch.Tensor) -> np.ndarray:
         """Spectra complex64 [bs, F] of one numpy batch, without gradients."""
         with torch.no_grad():
-            out = self._render_fn(self.state.params, self._device_batch(batch), dirs)
+            out = self._render_fn(self.state.params, device_batch(batch, self.device), dirs)
         out = out.cpu().numpy()
         return (out[..., 0] + 1j * out[..., 1]).astype(np.complex64)
 

@@ -14,6 +14,21 @@ If the energy loss is non-finite the whole update — params, moments and
 step count — is dropped, as the reference's ``continue`` does. The skip is
 decided on the device (``torch.where``), with no host synchronisation.
 
+With ``train.runtime_hparams`` the step reads the rate schedule, the weight
+decay and the loss weights from a bundle of tensors (``make_hparams``), as
+the JAX package's runtime-scalar program does: the rate is
+eta_min + (lr − eta_min)·cos-factor (``cosine_lr_hp``, not the static
+schedule's alpha form, which rounds differently in fp32) and the decay is
+always added, also when it is 0.
+
+Population training (``make_train_step(..., population=K)``) advances K
+trials in lockstep: every leaf of the state and of the bundle carries a
+leading K, the batch and the ray directions are shared. Each trial keeps
+its own loss, global-norm clip, non-finite skip, rate and decay; the
+gradient is that of Σ_k loss_k, whose trial axes never mix. ``torch.func.vmap``
+is not used: it refuses the renderer's checkpointed chunks (saved-tensor
+hooks), so the trial axis is written out through the field and the render.
+
 Params are the JAX package's tree of dicts and lists of tensors; names
 like ``enc.pos_pair`` and ``sigma_encoder.w.0`` address its leaves.
 """
@@ -84,9 +99,40 @@ def cosine_lr(tc: TrainConfig, step: torch.Tensor) -> torch.Tensor:
     return tc.lr * ((1 - alpha) * cosine + alpha)
 
 
+HP_WEIGHT_KEYS = (
+    "spec_loss_weight", "amplitude_loss_weight", "angle_loss_weight",
+    "time_loss_weight", "energy_loss_weight", "multistft_loss_weight",
+    "das_reg_loss_weight", "das_ce_loss_weight",
+)
+
+
+def make_hparams(tc: TrainConfig, device="cpu") -> Dict[str, torch.Tensor]:
+    """The runtime hyper-parameter bundle of ``tc`` as fp32 0-d tensors: the
+    loss weights, ``lr``, ``eta_min``, ``t_max`` and ``weight_decay``."""
+    hp = {k: getattr(tc, k) for k in HP_WEIGHT_KEYS}
+    hp.update(lr=tc.lr, eta_min=tc.eta_min, t_max=max(1, tc.T_max), weight_decay=tc.weight_decay)
+    return {k: torch.tensor(float(v), dtype=torch.float32, device=device) for k, v in hp.items()}
+
+
+def stack_hparams(hps) -> Dict[str, torch.Tensor]:
+    """K bundles of ``make_hparams`` → one bundle of [K] tensors."""
+    return {k: torch.stack([hp[k] for hp in hps]) for k in hps[0]}
+
+
+def cosine_lr_hp(hp: Dict[str, torch.Tensor], step: torch.Tensor) -> torch.Tensor:
+    """The cosine rate on a runtime bundle, as the JAX package writes it:
+    eta_min + (lr − eta_min)·0.5·(1 + cos(π·min(step, t_max)/t_max)), fp32."""
+    t = torch.minimum(step.to(torch.float32), hp["t_max"]) / hp["t_max"]
+    cosf = 0.5 * (1.0 + torch.cos(math.pi * t))
+    return hp["eta_min"] + (hp["lr"] - hp["eta_min"]) * cosf
+
+
 def current_lr(tc: TrainConfig, step: int) -> float:
     """The rate ``apply_optimizer`` applies at ``step``, on the host: the
-    same ``cosine_lr``, so the logged rate cannot drift from the applied one."""
+    same ``cosine_lr`` (``cosine_lr_hp`` with ``runtime_hparams``), so the
+    logged rate cannot drift from the applied one."""
+    if getattr(tc, "runtime_hparams", False):
+        return float(cosine_lr_hp(make_hparams(tc), torch.tensor(step)))
     return float(cosine_lr(tc, torch.tensor(step)))
 
 
@@ -104,34 +150,80 @@ def init_state(
     )
 
 
-def apply_optimizer(state: TrainState, grads, tc: TrainConfig, skip: torch.Tensor) -> TrainState:
-    """One step of the static optimizer chain; ``skip`` (bool scalar) keeps the old state."""
+def stack_states(states) -> TrainState:
+    """K states → one population state, every leaf (and the step) stacked
+    on a leading K."""
+    def stacked(get):
+        trees = [get(s) for s in states]
+        flat = [dict(named_leaves(t)) for t in trees]
+        return unflatten(trees[0], {n: torch.stack([f[n] for f in flat]) for n in flat[0]})
+
+    return TrainState(
+        stacked(lambda s: s.params),
+        AdamState(stacked(lambda s: s.opt_state.mu), stacked(lambda s: s.opt_state.nu)),
+        torch.stack([s.step for s in states]),
+    )
+
+
+def lane(state: TrainState, k: int) -> TrainState:
+    """Trial k of a population state, as a state of one trial (views)."""
+    return TrainState(
+        tree_map(lambda t: t[k], state.params),
+        AdamState(tree_map(lambda t: t[k], state.opt_state.mu), tree_map(lambda t: t[k], state.opt_state.nu)),
+        state.step[k],
+    )
+
+
+def apply_optimizer(
+    state: TrainState, grads, tc: TrainConfig, skip: torch.Tensor,
+    hp: Optional[Dict[str, torch.Tensor]] = None,
+) -> TrainState:
+    """One step of the optimizer chain; ``skip`` (bool) keeps the old state.
+
+    Without ``hp`` the static chain of ``tc``. With a runtime bundle ``hp``
+    its rate schedule and its weight decay, always added. A population state
+    (step [K]) takes ``skip`` and ``hp`` of shape [K]: each trial is clipped
+    by the global norm of its own slices of the leaves and keeps or drops its
+    own update."""
     names = [n for n, _ in named_leaves(state.params)]
     p = dict(named_leaves(state.params))
     g = dict(named_leaves(grads))
     mu = dict(named_leaves(state.opt_state.mu))
     nu = dict(named_leaves(state.opt_state.nu))
+    K = state.step.shape[0] if state.step.dim() == 1 else 0
 
-    g_norm = torch.sqrt(sum(torch.sum(g[n] ** 2) for n in names))
+    def bc(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        """A per-trial [K] value broadcast against a leaf [K, ...]."""
+        return v.reshape(K, *([1] * (like.dim() - 1))) if K else v
+
+    if K:
+        g_norm = torch.sqrt(sum(torch.sum((g[n] ** 2).reshape(K, -1), dim=1) for n in names))
+    else:
+        g_norm = torch.sqrt(sum(torch.sum(g[n] ** 2) for n in names))
     clip = g_norm < 1.0
     count = state.step + 1  # Adam's count after this update
     b1, b2, eps = 0.9, 0.999, 1e-8
     bc1 = 1 - b1 ** count.to(torch.float32)
     bc2 = 1 - b2 ** count.to(torch.float32)
-    lr = cosine_lr(tc, state.step)
+    lr = cosine_lr(tc, state.step) if hp is None else cosine_lr_hp(hp, state.step)
+    wd = tc.weight_decay if hp is None else hp["weight_decay"]
 
     new_p, new_mu, new_nu = {}, {}, {}
     for n in names:
-        u = torch.where(clip, g[n], g[n] / g_norm)
+        x = g[n]
+        u = torch.where(bc(clip, x), x, x / bc(g_norm, x))
         u = torch.where(torch.isfinite(u), u, torch.zeros_like(u))
-        if tc.weight_decay:
-            u = u + tc.weight_decay * p[n]
+        if hp is not None:
+            u = u + bc(wd, x) * p[n]
+        elif wd:
+            u = u + wd * p[n]
         m = (1 - b1) * u + b1 * mu[n]
         v = (1 - b2) * (u * u) + b2 * nu[n]
-        step = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-        new_p[n] = torch.where(skip, p[n], p[n] + (-lr) * step)
-        new_mu[n] = torch.where(skip, mu[n], m)
-        new_nu[n] = torch.where(skip, nu[n], v)
+        step = (m / bc(bc1, x)) / (torch.sqrt(v / bc(bc2, x)) + eps)
+        keep = bc(skip, x)
+        new_p[n] = torch.where(keep, p[n], p[n] + bc(-lr, x) * step)
+        new_mu[n] = torch.where(keep, mu[n], m)
+        new_nu[n] = torch.where(keep, nu[n], v)
 
     tmpl = state.params
     return TrainState(
@@ -143,19 +235,34 @@ def apply_optimizer(state: TrainState, grads, tc: TrainConfig, skip: torch.Tenso
 
 def make_train_step(
     fstatic, consts: RenderConsts, rc: RenderConfig, tc: TrainConfig, crit: CriterionConfig,
+    population: int = 0,
 ):
     """Returns (step, render).
 
-    ``step(state, batch, generator_or_dirs) → (state, LossBundle)``:
+    ``step(state, batch, generator_or_dirs, hp=None) → (state, LossBundle)``:
     batch holds tensors on the device: ``wave`` [bs, F, 2], ``pos_rx`` /
     ``pos_tx`` [bs, 3], and ``rot_tx`` [bs, 3] (complex variant) or
     ``ch_idx`` [bs] integer channels (multi-channel sets); the third
     argument is a ``torch.Generator`` for this step's random ray
-    directions, or the [R, 3] directions themselves.
+    directions, or the [R, 3] directions themselves. With
+    ``tc.runtime_hparams``, ``hp`` is the bundle of ``make_hparams`` (that
+    of ``tc`` when omitted).
+
+    ``population=K`` (needs ``tc.runtime_hparams``): the state's leaves and
+    step and ``hp``'s values carry a leading K (``stack_states``,
+    ``stack_hparams``), batch and directions are shared, and the bundle's
+    terms are [K]. ``population=0`` is the single-trial step.
     """
+    runtime_hp = bool(getattr(tc, "runtime_hparams", False))
+    if population:
+        assert runtime_hp, (
+            "population mode needs runtime_hparams=True: the K trials differ "
+            "only in the runtime hyper-parameter bundle"
+        )
     compute_dtype = (
         None if tc.compute_dtype in ("float32", "none", None) else getattr(torch, tc.compute_dtype)
     )
+    default_hp: Dict[str, Dict[str, torch.Tensor]] = {}  # by device, for runtime steps without hp
 
     def render(params, batch: Dict[str, torch.Tensor], dirs: torch.Tensor) -> torch.Tensor:
         return render_fused(
@@ -165,11 +272,28 @@ def make_train_step(
             shell_chunk=tc.shell_chunk, remat=bool(tc.remat), point_budget=tc.point_budget,
         )
 
+    def losses(pred: torch.Tensor, wave: torch.Tensor, hp) -> Tuple[torch.Tensor, LossBundle]:
+        """(the loss to differentiate, the bundle): per trial for a population."""
+        if not population:
+            bundle = criterion(pred, wave, crit, weights=hp)[0]
+            return bundle.total, bundle
+        per_trial = [
+            criterion(pred[k], wave, crit, weights={n: v[k] for n, v in hp.items()})[0]
+            for k in range(population)
+        ]
+        bundle = LossBundle(*(torch.stack(terms) for terms in zip(*per_trial)))
+        return sum(b.total for b in per_trial), bundle
+
     def step(
         state: TrainState, batch: Dict[str, torch.Tensor],
         generator_or_dirs: Union[torch.Generator, torch.Tensor],
+        hp: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Tuple[TrainState, LossBundle]:
         device = batch["pos_rx"].device
+        if runtime_hp and hp is None:
+            if population:
+                raise ValueError("a population step needs the [K] hyper-parameter bundle hp")
+            hp = default_hp.setdefault(str(device), make_hparams(tc, device))
         if "ch_idx" in batch:  # int32 from the sampler; indices are int64
             batch = {**batch, "ch_idx": batch["ch_idx"].long()}
         if isinstance(generator_or_dirs, torch.Tensor):
@@ -181,15 +305,15 @@ def make_train_step(
         params = tree_map(lambda t: t.detach().requires_grad_(True), state.params)
         named = list(named_leaves(params))
         pred = render(params, batch, dirs)
-        bundle, _, _ = criterion(pred, batch["wave"], crit)
-        grads_flat = torch.autograd.grad(bundle.total, [t for _, t in named], allow_unused=True)
+        total, bundle = losses(pred, batch["wave"], hp if runtime_hp else None)
+        grads_flat = torch.autograd.grad(total, [t for _, t in named], allow_unused=True)
         grads = unflatten(params, {
             n: torch.zeros_like(t) if d is None else d for (n, t), d in zip(named, grads_flat)
         })
         bundle = LossBundle(*(x.detach() for x in bundle))
         with torch.no_grad():
             skip = ~torch.isfinite(bundle.energy)
-            new_state = apply_optimizer(state, grads, tc, skip)
+            new_state = apply_optimizer(state, grads, tc, skip, hp if runtime_hp else None)
         return new_state, bundle
 
     return step, render

@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--profile DIR]
 
 Builds the port's CUDA kernels from ``avr_torch/ops/csrc`` (nvcc, cached
-in ``build/avr_torch_kernels/``) and drives three paths of the port, each
+in ``build/avr_torch_kernels/``) and drives four paths of the port, each
 at full width with random weights from a seed:
 
   * the flagship training step (complex field, ``avr_torch/flagship.py``):
@@ -19,7 +19,13 @@ at full width with random weights from a seed:
     checkpoints and validations every 2 (3 + 3 launches per iteration,
     3 + 0 per validation batch), a bit-equal resume on the card and a
     restore on the CPU, ``python -m avr_torch render`` from the checkpoint
-    (bit-equal to ``make_render_fn``) and ``rotate`` at 90° steps.
+    (bit-equal to ``make_render_fn``) and ``rotate`` at 90° steps;
+  * population training of the same recipe (``population_array``): 4
+    runtime-variant HPO trials (the known-good seed trial and 3 asked) per
+    step, 3 steps with 3 + 3 launches of the K-batched encode kernels per
+    step, each trial held against a single-trial step of its own; then
+    ``python -m avr_torch hpo --pop 4 --variant runtime`` with the iteration
+    budget cut to 2, which tells 4 trials.
 
 Before each path it holds each kernel against its plain PyTorch version
 at that path's shapes and checks the card against the plain CPU path on a
@@ -61,6 +67,15 @@ ARRAY_CONFIG = os.path.join(ROOT, "configs", "avr_synthetic_array.yml")
 ARRAY_GROUPS = 5
 # shell chunk of the array step's streaming run
 STREAMING_SHELL_CHUNK = 8
+# trials per population step, and the known-good seed trial of the array
+# recipe's runtime-variant study (scripts/hpo_real_study.py:126-131)
+POP_K = 4
+SEED_TRIAL = {
+    "lr": 1e-3, "eta_min_ratio": 0.1, "weight_decay": 0.0,
+    "spec_loss_weight": 1.0, "angle_loss_weight": 0.5,
+    "time_loss_weight": 100.0, "energy_loss_weight": 5.0,
+    "multistft_loss_weight": 1.0, "das_reg_loss_weight": 10.0,
+}
 
 # Device kernels of a profiled step, grouped by kind: the first kind with
 # a key in the (lower-cased) kernel name.
@@ -537,6 +552,84 @@ def phase_encode_array(torch, dev, fst, x, view, results):
     emit(out)
 
 
+def phase_encode_population(torch, dev, fst, x, view, results):
+    """The K-trial encode pair (``encode_rows_pop``, ``encode_backward_pop``:
+    the same two kernels, one launch for POP_K tables) at the array step's
+    streams: against their plain versions (a loop of the single-table plain
+    versions; forward bf16 bit-equal and fp32 within 1e-6 of scale, backward
+    within 1e-5 of scale) and against POP_K single-table launches (forward
+    bit-equal: same arithmetic per table; backward within 1e-5 of scale:
+    atomics in another order), timed against those POP_K launches. The
+    bound counts each table's rows that the points reach once, x once and
+    the outputs once."""
+    from avr_torch.ops import hashgrid_encode as he
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    K = POP_K
+    out = {"phase": "encode_population", "K": K}
+    for name, xs, modes in (("pos", x, ("bf16", "fp32")), ("dir", view, ("fp32",))):
+        grid = fst.encodings[name].grid
+        levels, n_rows = grid.levels, grid.padded_entries
+        N, L, F = xs.shape[0], len(levels), grid.n_features
+        M = N * sum(lv.K for lv in levels)
+        tables = torch.randn((K, n_rows, F), generator=gen, device=dev)
+        g = torch.randn((K, N, L, F), generator=gen, device=dev)
+        rows = int(torch.unique(he.corners(levels, xs)[0]).numel())
+        f_ms, f_by = bound(N * 12 + K * (rows * F * 4 + N * L * F * 4), K * M * 2 * F)
+        b_ms, b_by = bound(N * 12 + K * (N * L * F * 4 + n_rows * F * 4), K * M * 2 * F)
+        rec = {"N": N, "levels": L, "F": F, "n_rows": n_rows, "distinct_rows": rows}
+        plain_iters = 2 if name == "pos" else 5
+        for mode in modes:
+            rb = mode == "bf16"
+            ref = he.encode_rows_pop_reference(tables, levels, xs, round_bf16=rb)
+            got = he.encode_rows_pop(tables, levels, xs, round_bf16=rb)
+            single = torch.stack([he.encode_rows(tables[k], levels, xs, round_bf16=rb) for k in range(K)])
+            torch.cuda.synchronize()
+            scale, err = float(ref.abs().max()), float((got - ref).abs().max())
+            if rb:
+                n_diff = int((got != ref).sum())
+                check(n_diff == 0, f"{name} population forward bf16: {n_diff} values differ (max {err})")
+            else:
+                check(err <= 1e-6 * scale, f"{name} population forward fp32: max|err| {err} > 1e-6 × {scale}")
+            check(torch.equal(got, single), f"{name} population forward {mode} differs from {K} single launches")
+            del ref, got, single
+            rec[f"forward_{mode}"] = {
+                "max_abs_err": err, "scale": scale,
+                "kernel_ms": time_ms(lambda: he.encode_rows_pop(tables, levels, xs, round_bf16=rb)),
+                "device_ms": device_ms(lambda: he.encode_rows_pop(tables, levels, xs, round_bf16=rb)),
+                "k1_loop_ms": time_ms(
+                    lambda: [he.encode_rows(tables[k], levels, xs, round_bf16=rb) for k in range(K)]),
+                "plain_ms": time_ms(lambda: he.encode_rows_pop_reference(tables, levels, xs, round_bf16=rb),
+                                    iters=plain_iters, warmup=1),
+                "bound_ms": f_ms, "bound_by": f_by, "library_ms": None,
+            }
+            ref = he.encode_backward_pop_reference(g, levels, xs, n_rows, round_bf16=rb)
+            got = he.encode_backward_pop(g, levels, xs, n_rows, round_bf16=rb)
+            single = torch.stack([he.encode_backward(g[k], levels, xs, n_rows, round_bf16=rb) for k in range(K)])
+            torch.cuda.synchronize()
+            scale, err = float(ref.abs().max()), float((got - ref).abs().max())
+            check(err <= 1e-5 * scale, f"{name} population backward {mode}: max|err| {err} > 1e-5 × {scale}")
+            err_single = float((got - single).abs().max())
+            check(err_single <= 1e-5 * scale,
+                  f"{name} population backward {mode} against {K} single launches: {err_single} > 1e-5 × {scale}")
+            del ref, got, single
+            rec[f"backward_{mode}"] = {
+                "max_abs_err": err, "scale": scale, "vs_single_launches_max_abs": err_single,
+                "kernel_ms": time_ms(lambda: he.encode_backward_pop(g, levels, xs, n_rows, round_bf16=rb)),
+                "device_ms": device_ms(lambda: he.encode_backward_pop(g, levels, xs, n_rows, round_bf16=rb)),
+                "k1_loop_ms": time_ms(
+                    lambda: [he.encode_backward(g[k], levels, xs, n_rows, round_bf16=rb) for k in range(K)]),
+                "plain_ms": time_ms(
+                    lambda: he.encode_backward_pop_reference(g, levels, xs, n_rows, round_bf16=rb),
+                    iters=plain_iters, warmup=1),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            }
+        del tables, g
+        out[name] = rec
+    results["encode_population"] = {k: v for k, v in out.items() if k != "phase"}
+    emit(out)
+
+
 def card_vs_cpu(torch, dev, cfg, dataset_type: str, box, ch_idx=None, **render_kw):
     """render_fused on the card (kernels) against the CPU (plain versions)
     on a small config, fp32, from the same params (tables N(0,1), so that
@@ -784,11 +877,10 @@ def phase_train_array(torch, dev, profile_dir, results):
     tcs = dataclasses.replace(tc, point_budget=0, shell_chunk=STREAMING_SHELL_CHUNK)
     n_chunks = rc.n_samples // _pick_chunk(rc.n_samples, tcs.shell_chunk)
     n_ctx = sum(fst.encodings[k].otype == "hashgrid" for k in ("dir", "tx"))
-    expected = {
-        "scatter": 0,
-        "encode": n_ctx + 2 * n_chunks * (2 if tcs.remat else 1),
-        "encode_bwd": n_ctx + 2 * n_chunks,
-    }
+    expected = counts(
+        encode=n_ctx + 2 * n_chunks * (2 if tcs.remat else 1),
+        encode_bwd=n_ctx + 2 * n_chunks,
+    )
     step_s, _ = make_train_step(fst, consts, rc, tcs, crit)
     state, s_ms, s_bundles, s_launches, s_peak = drive_steps(torch, dev, step_s, state, run[:1], gen)
     check(s_launches == expected, f"streaming step launches {s_launches}, the plan predicts {expected}")
@@ -799,12 +891,19 @@ def phase_train_array(torch, dev, profile_dir, results):
 
 
 def launch_counts():
-    """The kernels' launch counts, by the keys of the ``kernels`` line."""
+    """The wrappers' launch counts, by the keys of the ``kernels`` line;
+    ``*_pop`` are the K-trial wrappers of the same two encode kernels."""
     from avr_torch.ops import hash_scatter as hs
     from avr_torch.ops import hashgrid_encode as he
 
     return {"scatter": hs.scatter_add_rows.launches, "encode": he.encode_rows.launches,
-            "encode_bwd": he.encode_backward.launches}
+            "encode_bwd": he.encode_backward.launches, "encode_pop": he.encode_rows_pop.launches,
+            "encode_bwd_pop": he.encode_backward_pop.launches}
+
+
+def counts(**nonzero) -> dict:
+    """A launch-count dict with every key of ``launch_counts``, 0 unless given."""
+    return {**dict.fromkeys(("scatter", "encode", "encode_bwd", "encode_pop", "encode_bwd_pop"), 0), **nonzero}
 
 
 def reset_launch_counts() -> None:
@@ -812,6 +911,7 @@ def reset_launch_counts() -> None:
     from avr_torch.ops import hashgrid_encode as he
 
     hs.scatter_add_rows.launches = he.encode_rows.launches = he.encode_backward.launches = 0
+    he.encode_rows_pop.launches = he.encode_backward_pop.launches = 0
 
 
 def since(before: dict) -> dict:
@@ -925,11 +1025,11 @@ def phase_runner_array(torch, dev, cfg, results) -> None:
         for v in vals:
             n_rows = n_test if v["mode"] == "test" else min(n_train, runner_lib.TRAIN_VAL_BATCHES * bs)
             n_b = -(-n_rows // bs)
-            want = {"scatter": 0, "encode": 3 * n_b, "encode_bwd": 0}
+            want = counts(encode=3 * n_b)
             check(v["launches"] == want, f"validate {v['mode']}@{v['it']}: launches {v['launches']} != {want}")
             v["batches"] = n_b
         train_launch = {k: launches[k] - val_launch[k] for k in launches}
-        want = {"scatter": 0, "encode": 3 * RUNNER_ITERATIONS, "encode_bwd": 3 * RUNNER_ITERATIONS}
+        want = counts(encode=3 * RUNNER_ITERATIONS, encode_bwd=3 * RUNNER_ITERATIONS)
         check(train_launch == want, f"training iterations' launches {train_launch} != {want}")
 
         # resume: on the device bit-equal, on the CPU equal params
@@ -968,7 +1068,7 @@ def phase_runner_array(torch, dev, cfg, results) -> None:
               f"render spec {spec.shape} {spec.dtype}")
         check(np.array_equal(spec, ref), f"render CLI differs from make_render_fn: max {np.abs(spec - ref).max()}")
         check(ir.shape == (n_test, T), f"render ir {ir.shape}")
-        want = {"scatter": 0, "encode": 3 * -(-n_test // bs), "encode_bwd": 0}
+        want = counts(encode=3 * -(-n_test // bs))
         check(render_launch == want, f"render launches {render_launch} != {want}")
         render_fn(*rows)
         t0 = time.perf_counter()
@@ -1014,6 +1114,221 @@ def phase_runner_array(torch, dev, cfg, results) -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     results["runner"] = rec
+    emit(rec)
+
+
+def population_trials(cfg):
+    """POP_K runtime-variant trials of the array recipe ``cfg``: the known-good
+    seed trial and POP_K − 1 asked from a fresh study, as configs."""
+    from avr_torch.hpo.runner import update_config
+    from avr_torch.hpo.study import Study
+
+    study = Study("population_array", n_startup=4)
+    study.enqueue_trial(SEED_TRIAL)
+    return [update_config(cfg, 0, t.number, t, "runtime") for t in (study.ask() for _ in range(POP_K))]
+
+
+def compare_lane(torch, k, lane_after, lane_before, serial_after, pop_bundle, serial_bundle):
+    """Lane k of a population step against a single-trial step of that trial
+    from the same state, batch and directions. The two differ by cuBLAS's
+    batched against single matmuls and by the order of the table gradient's
+    atomics, which moves gradients by about 1e-6 of their scale. The loss
+    terms (forward only, no atomics) are held to 1e-3 of each term. Adam
+    turns that noise into a large update difference only for the few
+    entries whose gradient is within it of 0 (on a fresh state each entry
+    moves by lr·g/(|g| + eps), so such an entry can move the other way): per
+    leaf, at most 10% of the entries (at least one) may differ in their
+    update (after − before) by more than 1% of the leaf's largest
+    single-trial move, and no entry by more than twice that move. On the
+    array recipe up to 2.7% of a leaf's entries did, all at the first step.
+    A lane given another trial's bundle differs in nearly every entry. The
+    update's relative L2 difference is printed."""
+    from avr_torch.train.state import named_leaves
+
+    terms = {}
+    for name, a, b in zip(serial_bundle._fields, pop_bundle, serial_bundle):
+        a, b = float(a[k]), float(b)
+        terms[name] = abs(a - b) / max(abs(b), 1e-12)
+        check(abs(a - b) <= 1e-3 * abs(b) + 1e-12, f"lane {k} loss {name}: {a} against the single-trial step's {b}")
+    worst_rel, worst_leaf, worst_share, share_leaf = 0.0, None, 0.0, None
+    before = dict(named_leaves(lane_before.params))
+    single = dict(named_leaves(serial_after.params))
+    for n, p in named_leaves(lane_after.params):
+        d_pop, d_ser = p - before[n], single[n] - before[n]
+        diff, move = (d_pop - d_ser).abs(), float(d_ser.abs().max())
+        rel = float(torch.linalg.vector_norm(d_pop - d_ser) / torch.linalg.vector_norm(d_ser).clamp_min(1e-30))
+        if rel > worst_rel:
+            worst_rel, worst_leaf = rel, n
+        n_off = int((diff > 1e-2 * move).sum())
+        if n_off / diff.numel() > worst_share:
+            worst_share, share_leaf = n_off / diff.numel(), n
+        check(n_off <= max(1, 0.1 * diff.numel()),
+              f"lane {k} leaf {n}: {n_off} of {diff.numel()} entries' updates differ from the single-trial step's")
+        check(float(diff.max()) <= 2 * move + 1e-12,
+              f"lane {k} leaf {n}: an entry moves beyond twice the single-trial step's largest move")
+    check(int(lane_after.step) == int(serial_after.step), f"lane {k} step count")
+    return {"loss_rel_err": max(terms.values()), "worst_update_rel_l2": worst_rel, "worst_leaf": worst_leaf,
+            "worst_share_off": worst_share, "worst_share_leaf": share_leaf}
+
+
+def phase_population_array(torch, dev, profile_dir, results):
+    """Population training of the array recipe at full width, bf16 compute:
+    POP_K runtime-variant trials (``population_trials``) per step, TRAIN_STEPS
+    steps on the port-written set of ``train_array``. Per step: 3 + 3 launches
+    of the K-trial encode wrappers and none of the single-table ones (read
+    just after the step, the counts set to 0 just before); finite losses;
+    each lane against a single-trial step of its trial from the lane's state
+    before the step (``compare_lane``), whose times give the serial rate."""
+    from avr_torch import geometry
+    from avr_torch.losses import CriterionConfig
+    from avr_torch.models import field
+    from avr_torch.render.common import make_consts
+    from avr_torch.train.state import (
+        init_state, lane, make_hparams, make_train_step, named_leaves, stack_hparams, stack_states,
+    )
+
+    cfg = array_config()
+    tcfgs = population_trials(cfg)
+    tc, rc = tcfgs[0].train, cfg.render
+    hps = [make_hparams(c.train, dev) for c in tcfgs]
+    lrs = [c.train.lr for c in tcfgs]
+    check(len(set(lrs)) == POP_K and lrs[0] == SEED_TRIAL["lr"], f"trial learning rates {lrs}")
+    batches, data_rec = array_batches(torch, dev, cfg)
+    fst = field.build_field(cfg.model, cfg.path.dataset_type)
+    consts = make_consts(rc, cfg.model.signal_output_dim, device=dev)
+    crit = CriterionConfig.from_configs(tc, rc)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = stack_states([init_state(gen, fst, tc, device=dev)] * POP_K)
+    init = {n: t.clone() for n, t in named_leaves(state.params)}
+    hp = stack_hparams(hps)
+    step_pop, _ = make_train_step(fst, consts, rc, tc, crit, population=POP_K)
+    step_one, _ = make_train_step(fst, consts, rc, tc, crit)
+    dgen = torch.Generator(device=dev).manual_seed(1)
+    pop_ms, serial_ms, peaks, lanes, bundles = [], [], [], [], []
+    per_step = []
+    for i in range(TRAIN_STEPS):
+        batch = batches[i % len(batches)]
+        dirs = geometry.ray_directions(rc.n_azi, rc.n_ele, generator=dgen, device=dev)
+        before = clone_state(torch, state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state, bundle = step_pop(state, batch, dirs, hp)
+        torch.cuda.synchronize()
+        pop_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = launch_counts()
+        peaks.append(torch.cuda.max_memory_allocated(dev))
+        per_step.append(launches)
+        check(launches == counts(encode_pop=3, encode_bwd_pop=3),
+              f"population step {i}: launches {launches}, want 3 + 3 of the K-trial encodes")
+        vals = {k: v.tolist() for k, v in bundle.as_dict().items()}
+        bundles.append(vals)
+        for name, v in vals.items():
+            check(all(x == x and abs(x) != float("inf") for x in v), f"population step {i}: {name} {v}")
+        check(all(x > 0 for x in vals["das_reg"]), f"the DAS regression term is zero: {vals}")
+        step_lanes = []
+        for k in range(POP_K):
+            lb = lane(before, k)
+            t0 = time.perf_counter()
+            s_k, b_k = step_one(lb, batch, dirs, hps[k])
+            torch.cuda.synchronize()
+            serial_ms.append({"step": i, "ms": (time.perf_counter() - t0) * 1e3})
+            step_lanes.append(compare_lane(torch, k, lane(state, k), lb, s_k, bundle, b_k))
+            del s_k, lb
+        lanes.append(step_lanes)
+        del before
+    check(state.step.tolist() == [TRAIN_STEPS] * POP_K, f"population step counts {state.step.tolist()}")
+    for n, t in named_leaves(state.params):
+        for k in range(POP_K):
+            check(not torch.equal(t[k], init[n][k]), f"lane {k} leaf {n} did not move")
+        for k in range(1, POP_K):
+            check(not torch.equal(t[k], t[0]), f"lanes 0 and {k} of leaf {n} are equal")
+    pop_steady = sum(pop_ms[1:]) / (len(pop_ms) - 1)
+    ser = [r["ms"] for r in serial_ms if r["step"] > 0]
+    serial_steady = sum(ser) / len(ser)
+    rec = {
+        "phase": "population_array", "K": POP_K, "steps": TRAIN_STEPS, "compute_dtype": tc.compute_dtype,
+        "batch": tc.batch_size, "rays": rc.n_rays, "shells": rc.n_samples, "T": cfg.model.signal_output_dim,
+        "trials": [{k: c.train.__dict__[k] for k in ("lr", "eta_min", "weight_decay", "spec_loss_weight",
+                                                      "time_loss_weight", "das_reg_loss_weight")}
+                   for c in tcfgs],
+        "step_ms": pop_ms, "steady_ms_per_step": pop_steady, "serial_step_ms": serial_ms,
+        "serial_steady_ms_per_step": serial_steady,
+        "trial_steps_per_s": POP_K / (pop_steady / 1e3), "serial_trial_steps_per_s": 1 / (serial_steady / 1e3),
+        "trial_throughput_gain": (POP_K / pop_steady) / (1 / serial_steady),
+        "peak_mem_bytes": max(peaks), "peak_mem_per_step": peaks,
+        # the peak includes the lanes' pre-step copy (params, mu, nu)
+        "state_snapshot_bytes": 3 * sum(t.numel() * t.element_size() for t in init.values()),
+        "launches_per_step": per_step[-1], "lanes": lanes, "losses_last": bundles[-1], "data": data_rec,
+        "train_array_steady_ms_per_step": results.get("array_steady_ms"),
+    }
+    results["population"] = {"launches": {k: sum(c[k] for c in per_step) for k in per_step[0]},
+                             "steady_ms": pop_steady}
+    emit(rec)
+    if profile_dir:
+        profile_step(torch, lambda st, b, d: step_pop(st, b, d, hp), state, batches[0], dirs, pop_steady,
+                     profile_dir, "population_array_step")
+
+
+def clone_state(torch, state):
+    """A copy of a train state on the device (the lanes' state before a step)."""
+    from avr_torch.train.state import AdamState, TrainState, tree_map
+
+    return TrainState(tree_map(torch.clone, state.params),
+                      AdamState(tree_map(torch.clone, state.opt_state.mu), tree_map(torch.clone, state.opt_state.nu)),
+                      state.step.clone())
+
+
+def phase_hpo_cli(torch, dev, results):
+    """``python -m avr_torch hpo --pop POP_K --variant runtime`` on the
+    array recipe with its iteration budget cut to 2 (``total_iterations``,
+    ``val_freq``, ``save_freq``; nothing else), on the port-written set:
+    POP_K trials told with finite objectives, each logdir with its
+    val_iter npz, and the K-trial encodes' launches as derived from the
+    loop (2 steps, one validation render of the test split)."""
+    import sqlite3
+    import shutil
+    import tempfile
+
+    from avr_torch import __main__ as cli
+    from avr_torch.data.synthetic import RoomSpec, write_real_env_dataset
+
+    cfg = array_config()
+    rc, T = cfg.render, cfg.model.signal_output_dim
+    tmp = tempfile.mkdtemp(prefix="avr_hpo_cli_")
+    try:
+        d = os.path.join(tmp, "data")
+        write_real_env_dataset(d, RoomSpec(speed=rc.speed, fs=rc.fs, seq_len=T), ARRAY_GROUPS, seed=0)
+        cfg.train.total_iterations, cfg.train.val_freq, cfg.train.save_freq = 2, 2, 2
+        cfg.path.logdir = os.path.join(tmp, "logs")
+        yml = os.path.join(tmp, "hpo.yml")
+        cfg.to_yaml(yml)
+        db = os.path.join(tmp, "study.db")
+        torch.cuda.synchronize(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        cli.main(["hpo", "--config", yml, "--dataset_dir", d, "--variant", "runtime", "--pop", str(POP_K),
+                  "--n_trials", str(POP_K), "--storage", f"sqlite:///{db}", "--device", str(dev)])
+        torch.cuda.synchronize(dev)
+        wall_s = time.perf_counter() - t0
+        launches = launch_counts()
+        rows = sqlite3.connect(db).execute("SELECT number, state, value FROM trials ORDER BY number").fetchall()
+        check([(n, st) for n, st, _ in rows] == [(k, "COMPLETE") for k in range(POP_K)], f"study rows {rows}")
+        check(all(v is not None and v == v and abs(v) != float("inf") for _, _, v in rows), f"objectives {rows}")
+        npzs = []
+        for k in range(POP_K):
+            npz = os.path.join(cfg.path.logdir, f"synthetic_array_param_{k}_1", "val_result", "val_iter000002.npz")
+            check(os.path.exists(npz), f"missing {npz}")
+            npzs.append(npz)
+        n_test = 8  # the last of ARRAY_GROUPS groups
+        want = counts(encode_pop=3 * 2 + 3 * -(-n_test // cfg.train.batch_size), encode_bwd_pop=3 * 2)
+        check(launches == want, f"hpo --pop launches {launches} != {want}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = {"phase": "hpo_cli_population", "K": POP_K, "trials": len(rows),
+           "objectives": [v for _, _, v in rows], "wall_s": wall_s, "launches": launches}
+    results["hpo_cli"] = rec
     emit(rec)
 
 
@@ -1086,6 +1401,27 @@ def array_entry(results, key: str) -> dict:
     return entry
 
 
+def population_entry(results, key: str) -> dict:
+    """The K-trial numbers of one encode kernel for the ``kernels`` line:
+    launches of its K-trial wrapper in population_array's steps and in the
+    hpo CLI run, and at the pos stream its time (fp32, the step's bf16
+    beside) against POP_K single-table launches, bound and error."""
+    kind = "forward" if key == "encode" else "backward"
+    pos = results["encode_population"]["pos"]
+    fp, bf = pos[f"{kind}_fp32"], pos[f"{kind}_bf16"]
+    return {
+        "K": POP_K, "launches": results["population"]["launches"][f"{key}_pop"],
+        "launches_per_step": results["population"]["launches"][f"{key}_pop"] / TRAIN_STEPS,
+        "hpo_cli_launches": results["hpo_cli"]["launches"][f"{key}_pop"],
+        "ms": fp["kernel_ms"], "device_ms": fp["device_ms"], "k1_loop_ms": fp["k1_loop_ms"],
+        "bound_ms": fp["bound_ms"], "bound_by": fp["bound_by"], "max_abs_err": fp["max_abs_err"],
+        "plain_ms": fp["plain_ms"], "bf16_ms": bf["kernel_ms"], "bf16_k1_loop_ms": bf["k1_loop_ms"],
+        "bf16_max_abs_err": bf["max_abs_err"],
+        "dir": {k: results["encode_population"]["dir"][f"{kind}_fp32"][k]
+                for k in ("kernel_ms", "device_ms", "k1_loop_ms", "bound_ms", "max_abs_err")},
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", default=None, help="directory for a torch.profiler trace of one extra step")
@@ -1115,6 +1451,8 @@ def main() -> int:
     b = torch.randn((32, 16), device=dev).to(torch.bfloat16)
     mm = torch.mm(a, b, out_dtype=torch.float32)
     check(mm.dtype == torch.float32, "bf16 × bf16 → fp32 matmul")
+    bmm = torch.bmm(a[None].expand(2, -1, -1), b[None].expand(2, -1, -1), out_dtype=torch.float32)
+    check(bmm.dtype == torch.float32 and torch.equal(bmm[1], mm), "batched bf16 × bf16 → fp32 matmul")
     ptxas = {
         n: [ln.strip() for ln in r.splitlines() if "registers" in ln or "spill" in ln]
         for n, r in _build.PTXAS_REPORT.items()
@@ -1139,10 +1477,13 @@ def main() -> int:
     afst = field.build_field(acfg.model, acfg.path.dataset_type)
     ax, aview = step_points(torch, dev, acfg, seed=0, lo=0.5, hi=2.5)
     phase_encode_array(torch, dev, afst, ax, aview, results)
+    phase_encode_population(torch, dev, afst, ax, aview, results)
     del ax, aview
     phase_small_standard(torch, dev)
     phase_train_array(torch, dev, args.profile, results)
     phase_runner_array(torch, dev, array_config(), results)
+    phase_population_array(torch, dev, args.profile, results)
+    phase_hpo_cli(torch, dev, results)
     emit({"phase": "profiler_misses", **PROFILER_MISSES})
 
     kernels = (  # name, source, the TPU code it replaces, key of its results and launch count
@@ -1166,6 +1507,7 @@ def main() -> int:
                 "launches_per_iteration": results["runner"]["launches_per_iteration"][key],
                 "launches_per_validation_batch": results["runner"]["launches_per_validation_batch"][key],
             },
+            **({"population": population_entry(results, key)} if key != "scatter" else {}),
         }
         for name, src, replaces, key in kernels
     ]})
