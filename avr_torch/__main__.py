@@ -1,17 +1,21 @@
 """Unified CLI: ``python -m avr_torch <command> ...`` (port of ``avr_tpu/__main__.py``).
 
 Commands mirror the reference's per-script entry points:
-  train      — avr_runner.py          (training / resume; --device)
+  train      — avr_runner.py          (training / resume; --device;
+               several devices: torchrun --nproc_per_node N -m avr_torch
+               train ... [--data_parallel D] [--dist_backend nccl|gloo])
   render     — batch IR inference from a trained checkpoint (--device)
   doa        — plot_eval.run_doa_on_npz / DoA_val_res.py
   das        — plot_eval.run_delay_and_sum_on_npz
   rotate     — eval_rotate_doa_avr.py (--device)
+  whitenoise — whitenoise_long_doa.py / whitenoise_bandpass_doa.py
+  make-configs — make_config_for_control_exp.py
   synth      — synthetic shoebox dataset generation
+  plot       — plot_loss.py / plot_DoA*.py / whitenoise_frame_* /
+               doa_compare_stft_conditions.py / inspect_bandpass.py
   tools      — tools/meshrir_split.py, check_data.py
   hpo        — optuna_avr_runner*.py  (hyper-parameter search; --device;
                --pop K trains K runtime-variant trials as one population)
-
-Not ported yet (they exit with code 2): whitenoise, make-configs, plot.
 
 ``--device`` defaults to ``cuda`` and raises without a CUDA device; pass
 ``--device cpu`` to run the kernels' plain versions on the CPU.
@@ -20,8 +24,6 @@ Not ported yet (they exit with code 2): whitenoise, make-configs, plot.
 from __future__ import annotations
 
 import sys
-
-NOT_PORTED = ("whitenoise", "make-configs", "plot")
 
 
 def main(argv=None) -> None:
@@ -113,9 +115,37 @@ def main(argv=None) -> None:
         from avr_torch.hpo.runner import main as hpo_main
 
         hpo_main(rest)
-    elif cmd in NOT_PORTED:
-        print(f"avr_torch: {cmd!r} is not ported yet; run `python -m avr_tpu {cmd}`")
-        sys.exit(2)
+    elif cmd == "whitenoise":
+        import argparse
+
+        from avr_torch.eval.whitenoise import WhitenoiseConfig, run_whitenoise_eval
+
+        p = argparse.ArgumentParser(prog="avr_torch whitenoise")
+        p.add_argument("--config", required=True)
+        p.add_argument("--force", action="store_true")
+        a = p.parse_args(rest)
+        cfg = WhitenoiseConfig.from_yaml(a.config)
+        if a.force:
+            cfg.force = True
+        df = run_whitenoise_eval(cfg)
+        print(df.head(10).to_string())
+    elif cmd == "make-configs":
+        import argparse
+
+        import yaml
+
+        from avr_torch.utils.config_tools import generate_param_variants
+
+        p = argparse.ArgumentParser(prog="avr_torch make-configs")
+        p.add_argument("--base_dir", required=True)
+        p.add_argument("--params", required=True, help="YAML file of sweep dict")
+        a = p.parse_args(rest)
+        with open(a.params) as f:
+            sweep = yaml.safe_load(f)
+        for path in generate_param_variants(a.base_dir, sweep):
+            print("wrote", path)
+    elif cmd == "plot":
+        _plot_cli(rest)
     else:
         print(f"unknown command {cmd!r}; run with --help")
         sys.exit(2)
@@ -212,6 +242,68 @@ def _render_cli(rest) -> None:
                 write_wav(os.path.join(a.wav_dir, f"ir_{i:05d}.wav"), ir[i] / peak, cfg.render.fs)
     np.savez(a.out, **out)
     print(f"rendered {n} IRs -> {a.out}")
+
+
+def _plot_cli(rest) -> None:
+    """Reporting subcommands over training logs / eval pickles."""
+    import argparse
+    import json
+    import pickle
+
+    p = argparse.ArgumentParser(prog="avr_torch plot")
+    p.add_argument("kind", choices=[
+        "loss", "loss-epoch", "doa-scatter", "doa-detail", "das-detail",
+        "frame-errors", "frame-scatter",
+        "stft-compare", "band-response", "median-summary",
+        "waveform-level", "rotate", "report",
+    ])
+    p.add_argument("inputs", nargs="+",
+                   help="metrics.jsonl / tfevents file / logdir / doa "
+                        "pickle / condition pickles / val npz / results "
+                        "dir (per kind)")
+    p.add_argument("--save", required=True)
+    p.add_argument("--prefixes", nargs="*", default=["train_loss"])
+    p.add_argument("--fs", type=int, default=16000)
+    a = p.parse_args(rest)
+
+    from avr_torch.eval import aggregators
+    from avr_torch.utils import plotting
+
+    if a.kind == "loss":
+        plotting.plot_loss_curves(a.inputs[0], a.save, a.prefixes)
+    elif a.kind == "loss-epoch":
+        plotting.plot_loss_by_epoch(a.inputs[0], a.save)
+    elif a.kind == "doa-detail":
+        print(aggregators.plot_doa_detail_scatter(a.inputs[0], a.save))
+    elif a.kind == "das-detail":
+        print(aggregators.plot_das_detail_scatter(a.inputs[0], a.save))
+    elif a.kind == "doa-scatter":
+        with open(a.inputs[0], "rb") as f:
+            plotting.plot_doa_scatter(pickle.load(f), a.save)
+    elif a.kind == "frame-errors":
+        aggregators.plot_frame_errors(a.inputs, a.save)
+    elif a.kind == "frame-scatter":
+        aggregators.plot_frame_scatter(a.inputs[0], a.save)
+    elif a.kind == "stft-compare":
+        # The JAX CLI passes save_path=, which compare_stft_conditions
+        # does not take (TypeError); the port writes the CSV to --save.
+        df = aggregators.compare_stft_conditions(a.inputs, fs=a.fs, save_csv=a.save)
+        print(df.to_string())
+    elif a.kind == "band-response":
+        aggregators.plot_band_response(a.inputs[0], a.save, fs=a.fs)
+    elif a.kind == "median-summary":
+        df = aggregators.circular_median_summary(a.inputs[0])
+        df.to_csv(a.save, index=False)
+        print(json.dumps({"rows": len(df), "csv": a.save}))
+    elif a.kind == "waveform-level":
+        df = aggregators.waveform_level_summary(a.inputs[0], a.save)
+        print(df.groupby("reduction")[["pred_vs_true", "pred_vs_gt"]].mean().to_string())
+    elif a.kind == "rotate":
+        aggregators.plot_rotate_results(a.inputs[0], a.save)
+    elif a.kind == "report":
+        doa_by_iter = aggregators.experiment_report(a.inputs[0], save_path=a.save)
+        print(json.dumps({str(k): v for k, v in sorted(doa_by_iter.items())}, indent=2))
+    print(f"wrote {a.save}")
 
 
 def _tools_cli(rest) -> None:

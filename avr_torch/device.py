@@ -1,10 +1,14 @@
 """Device selection for the port's entry points.
 
 Entry points default to ``device="cuda"``. A caller that did not ask for
-the CPU never silently gets it: with no CUDA device the call raises.
+the CPU never silently gets it: with no CUDA device the call raises. Under
+torchrun (``LOCAL_RANK`` set) a bare ``"cuda"`` is the rank's own device,
+``cuda:{LOCAL_RANK}``.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -18,4 +22,6 @@ def resolve_device(device="cuda") -> torch.device:
             "torch.cuda.is_available() is False; pass device='cpu' to run "
             "the plain PyTorch versions of the kernels"
         )
+    if dev.type == "cuda" and dev.index is None and "LOCAL_RANK" in os.environ:
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
     return dev

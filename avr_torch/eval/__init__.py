@@ -1,1 +1,2 @@
-"""Evaluation: direction-of-arrival estimators and the rotation sweep."""
+"""Evaluation: direction-of-arrival estimators, the rotation sweep, the white-noise DoA
+evaluation and the report aggregators (the last two need pandas and matplotlib)."""

@@ -21,6 +21,14 @@ Responsibilities, as in the JAX runner (after reference/avr_runner.py:25-372):
     ori_sig/pred_sig/position_rx/position_tx/fs[/ch_idx] that the DoA
     suite reads (avr_runner.py:278-302).
 
+Several devices (``mesh_plan``, ``parallel.mesh``): one process per device,
+every rank with the same sampler seed, so the same global batches and
+directions; the step splits them over the (data, ray) plan. Rank 0 alone
+writes the log, the metrics, the config backup, figures, ``val_result``
+npz files and checkpoints; a barrier follows each save, and every rank
+loads a checkpoint from the shared log directory. The fresh state is rank
+0's, broadcast.
+
 Random numbers: torch cannot draw JAX's. The training directions of
 iteration ``it`` come from a generator seeded from (train.seed + 1, it)
 alone, the counterpart of ``fold_in(key, it)``, so a resumed run draws the
@@ -32,6 +40,7 @@ same directions; the eval directions from a generator seeded with
 from __future__ import annotations
 
 import itertools
+import logging
 import os
 import shutil
 import sys
@@ -49,9 +58,11 @@ from avr_torch.device import resolve_device
 from avr_torch.losses import CriterionConfig, LossBundle, criterion
 from avr_torch.metrics import metric_cal
 from avr_torch.models import field as field_lib
+from avr_torch.parallel.mesh import MeshPlan
 from avr_torch.render.common import make_consts
 from avr_torch.train.state import (
-    AdamState, TrainState, current_lr, init_state, make_train_step, named_leaves, tree_map,
+    AdamState, TrainState, broadcast_state, current_lr, init_state, make_train_step, named_leaves,
+    tree_map,
 )
 from avr_torch.utils.logging import MetricsWriter, configure_logger
 
@@ -85,6 +96,15 @@ def eval_directions(rc, device: torch.device, eval_seed: int = EVAL_SEED) -> tor
     return geometry.ray_directions(rc.n_azi, rc.n_ele, generator=gen, device=device)
 
 
+class _NoWriter:
+    """The metrics writer of a rank other than 0: writes nothing."""
+
+    def scalar(self, *args, **kwargs) -> None:
+        pass
+
+    scalars = flush = close = scalar
+
+
 class AVRRunner:
     def __init__(
         self,
@@ -95,19 +115,27 @@ class AVRRunner:
         test_data: Optional[Dataset] = None,
         memory_check: bool = False,
         device="cuda",
+        mesh_plan: Optional[MeshPlan] = None,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.batch_size = batch_size or cfg.train.batch_size
         self.memory_check = memory_check
+        self.mesh_plan = mesh_plan
+        self.is_main = mesh_plan is None or mesh_plan.rank == 0
         self.logdir = os.path.join(cfg.path.logdir, cfg.path.expname)
-        os.makedirs(self.logdir, exist_ok=True)
-        self.logger = configure_logger(self.logdir)
-        self.writer = MetricsWriter(self.logdir)
-        cfg.to_yaml(os.path.join(self.logdir, "avr_conf.yml"))  # config backup
-        # invocation audit (reference/avr_runner.py:441-446)
-        with open(os.path.join(self.logdir, "command_log.txt"), "a") as f:
-            f.write(f"{time.strftime('%Y-%m-%d %H:%M:%S')} {' '.join(sys.argv)}\n")
+        if self.is_main:
+            os.makedirs(self.logdir, exist_ok=True)
+            self.logger = configure_logger(self.logdir)
+            self.writer = MetricsWriter(self.logdir)
+            cfg.to_yaml(os.path.join(self.logdir, "avr_conf.yml"))  # config backup
+            # invocation audit (reference/avr_runner.py:441-446)
+            with open(os.path.join(self.logdir, "command_log.txt"), "a") as f:
+                f.write(f"{time.strftime('%Y-%m-%d %H:%M:%S')} {' '.join(sys.argv)}\n")
+        else:
+            self.logger = configure_logger("", name=f"avr_torch.rank{mesh_plan.rank}")
+            self.logger.setLevel(logging.WARNING)
+            self.writer = _NoWriter()
 
         seq_len = cfg.model.signal_output_dim
         dt = cfg.path.dataset_type
@@ -134,12 +162,14 @@ class AVRRunner:
         self.crit = CriterionConfig.from_configs(cfg.train, cfg.render)
         gen = torch.Generator(device=self.device).manual_seed(cfg.train.seed)
         self.state = init_state(gen, self.fstatic, cfg.train, device=self.device)
+        if mesh_plan is not None:
+            self.state = broadcast_state(self.state)
         # With train.runtime_hparams the step takes the JAX package's
         # runtime-scalar program: its rate formula (cosine_lr_hp), which
         # rounds differently from the static schedule, and an always-added
         # weight decay.
         self._step_fn, self._render_fn = make_train_step(
-            self.fstatic, self.consts, cfg.render, cfg.train, self.crit
+            self.fstatic, self.consts, cfg.render, cfg.train, self.crit, mesh_plan=mesh_plan
         )
         self._figures_warned = False
         self._ckpt_dir = os.path.join(os.path.abspath(self.logdir), "ckpts")
@@ -163,12 +193,19 @@ class AVRRunner:
     def save_checkpoint(self) -> int:
         """Write the state at its step (once per step, as orbax) and keep
         the KEEP_CHECKPOINTS newest. Synchronous: the file is complete when
-        this returns."""
+        this returns, on every rank (rank 0 writes, then all wait)."""
         step = int(self.state.step)
+        if self.is_main:
+            self._write_checkpoint(step)
+        if self.mesh_plan is not None:
+            torch.distributed.barrier()
+        return step
+
+    def _write_checkpoint(self, step: int) -> None:
         step_dir = os.path.join(self._ckpt_dir, str(step))
         path = os.path.join(step_dir, CHECKPOINT_FILE)
         if os.path.exists(path):
-            return step
+            return
         os.makedirs(step_dir, exist_ok=True)
 
         def host(tree):
@@ -182,7 +219,6 @@ class AVRRunner:
         os.replace(path + ".tmp", path)
         for old in self.checkpoint_steps()[:-KEEP_CHECKPOINTS]:
             shutil.rmtree(os.path.join(self._ckpt_dir, str(old)))
-        return step
 
     def load_checkpoint(self, step: Optional[int] = None) -> bool:
         step = step if step is not None else self.latest_step()
@@ -245,7 +281,7 @@ class AVRRunner:
                     self.writer.scalar("samples_per_sec", rate, it)
                     self.writer.scalar("learning rate", current_lr(tc, it), it)
                     t_last = time.time()
-                if self.memory_check and crossed(tc.log_freq):
+                if self.memory_check and self.is_main and crossed(tc.log_freq):
                     # instrumented mode (reference/avr_runner_memory_check.py)
                     from avr_torch.utils import profiling
 
@@ -280,7 +316,9 @@ class AVRRunner:
         dirs=None,
     ):
         """Render a dataset split with fixed directions: those of
-        ``eval_seed``, or ``dirs`` [R, 3] when given.
+        ``eval_seed``, or ``dirs`` [R, 3] when given. A trailing partial
+        batch is padded to the batch size by repeating its last row, as the
+        JAX runner does, so every call renders whole shares of the plan.
 
         Returns (pred complex64 [N, F], ori complex64 [N, F]).
         The reference renders eval batches with fresh random azimuth
@@ -293,8 +331,11 @@ class AVRRunner:
         sampler = BatchSampler(data, self.batch_size, shuffle=False, jitter=False, drop_last=False)
         n_batches = len(sampler) if max_batches is None else min(len(sampler), max_batches)
         preds, oris = [], []
+        bs = self.batch_size
         for batch in itertools.islice(sampler.epoch(), n_batches):
-            preds.append(self.render_batch(batch, dirs))
+            n_real = batch["pos_rx"].shape[0]
+            padded = {k: np.concatenate([v, np.repeat(v[-1:], bs - n_real, axis=0)]) for k, v in batch.items()}
+            preds.append(self.render_batch(padded, dirs)[:n_real])
             wave = batch["wave"]
             oris.append((wave[..., 0] + 1j * wave[..., 1]).astype(np.complex64))
         return np.concatenate(preds), np.concatenate(oris)
@@ -371,7 +412,7 @@ class AVRRunner:
             "val@%d %s", iteration, " ".join(f"{k}:{v:.4f}" for k, v in metrics.items()),
         )
 
-        if mode_set == "test":
+        if mode_set == "test" and self.is_main:
             npz_dir = os.path.join(self.logdir, "val_result")
             os.makedirs(npz_dir, exist_ok=True)
             payload = dict(
@@ -426,24 +467,51 @@ def main(argv=None) -> None:
     p.add_argument("--memory_check", action="store_true",
                    help="log device memory + snapshots every log_freq iters")
     p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu runs the plain versions)")
+    p.add_argument("--data_parallel", type=int, default=None,
+                   help="ranks on the data axis of the plan (default: the largest power of two "
+                        "dividing the world and the batch; the rest go to rays)")
+    p.add_argument("--multihost", action="store_true",
+                   help="accepted as the JAX CLI accepts it, and does nothing: a torchrun world "
+                        "above 1 joins the process group, from torchrun's environment")
+    p.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
+                   help="process-group backend (default nccl on CUDA, gloo on the CPU; gloo lets "
+                        "several ranks share a device, a bare --device cuda then dealing the "
+                        "local ranks round the host's devices)")
     args = p.parse_args(argv)
 
-    # test mode accepts a logdir: read its backed-up avr_conf.yml
-    # (reference/avr_runner.py:430-432)
-    config = args.config
-    if os.path.isdir(config):
-        config = os.path.join(config, "avr_conf.yml")
-    cfg = AVRConfig.from_yaml(config)
-    if args.mode == "test":
-        # evaluate the TRAINED model even when the backed-up config was
-        # written with load_ckpt: false
-        cfg.train.load_ckpt = True
-    runner = AVRRunner(cfg, args.dataset_dir, batch_size=args.batchsize,
-                       memory_check=args.memory_check, device=args.device)
-    if args.mode == "train":
-        runner.train()
-    else:
-        runner.validate(int(runner.state.step))
+    device = args.device
+    joins = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if joins:
+        from avr_torch.parallel.mesh import initialize_multihost
+
+        device = initialize_multihost(args.device, args.dist_backend)
+
+    try:
+        # test mode accepts a logdir: read its backed-up avr_conf.yml
+        # (reference/avr_runner.py:430-432)
+        config = args.config
+        if os.path.isdir(config):
+            config = os.path.join(config, "avr_conf.yml")
+        cfg = AVRConfig.from_yaml(config)
+        if args.mode == "test":
+            # evaluate the TRAINED model even when the backed-up config was
+            # written with load_ckpt: false
+            cfg.train.load_ckpt = True
+        plan = None
+        if joins:
+            from avr_torch.parallel.mesh import make_mesh_plan
+
+            plan = make_mesh_plan(batch_size=args.batchsize or cfg.train.batch_size,
+                                  data_parallel=args.data_parallel)
+        runner = AVRRunner(cfg, args.dataset_dir, batch_size=args.batchsize,
+                           memory_check=args.memory_check, device=device, mesh_plan=plan)
+        if args.mode == "train":
+            runner.train()
+        else:
+            runner.validate(int(runner.state.step))
+    finally:
+        if joins:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

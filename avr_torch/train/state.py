@@ -29,6 +29,12 @@ gradient is that of Σ_k loss_k, whose trial axes never mix. ``torch.func.vmap``
 is not used: it refuses the renderer's checkpointed chunks (saved-tensor
 hooks), so the trial axis is written out through the field and the render.
 
+With a data × ray plan (``make_train_step(..., mesh_plan=)``, one process
+per device, ``parallel.mesh``) each rank renders its rows over its slice
+of the rays, one all-reduce assembles the global prediction, every rank
+runs the criterion on the whole batch, and the parameter gradients are
+summed over the world before the optimizer, which runs on every rank.
+
 Params are the JAX package's tree of dicts and lists of tensors; names
 like ``enc.pos_pair`` and ``sigma_encoder.w.0`` address its leaves.
 """
@@ -45,6 +51,7 @@ from avr_torch.config import RenderConfig, TrainConfig
 from avr_torch.device import resolve_device
 from avr_torch.losses import CriterionConfig, LossBundle, criterion
 from avr_torch.models import field as field_lib
+from avr_torch.parallel.mesh import MeshPlan, all_reduce_sum, assemble_prediction, broadcast
 from avr_torch.render.common import RenderConsts
 from avr_torch.render.fused import render_fused
 
@@ -150,6 +157,16 @@ def init_state(
     )
 
 
+def broadcast_state(state: TrainState) -> TrainState:
+    """Rank 0's state on every rank of the process group (every leaf and
+    the step), as JAX's ``shard_state`` replicates it over the mesh."""
+    trees = (state.params, state.opt_state.mu, state.opt_state.nu)
+    flat = [dict(named_leaves(t)) for t in trees]
+    out = iter(broadcast([t for f in flat for t in f.values()] + [state.step]))
+    new = [unflatten(tree, {n: next(out) for n in f}) for tree, f in zip(trees, flat)]
+    return TrainState(new[0], AdamState(new[1], new[2]), next(out))
+
+
 def stack_states(states) -> TrainState:
     """K states → one population state, every leaf (and the step) stacked
     on a leading K."""
@@ -235,7 +252,7 @@ def apply_optimizer(
 
 def make_train_step(
     fstatic, consts: RenderConsts, rc: RenderConfig, tc: TrainConfig, crit: CriterionConfig,
-    population: int = 0,
+    population: int = 0, mesh_plan: Optional[MeshPlan] = None,
 ):
     """Returns (step, render).
 
@@ -252,6 +269,13 @@ def make_train_step(
     step and ``hp``'s values carry a leading K (``stack_states``,
     ``stack_hparams``), batch and directions are shared, and the bundle's
     terms are [K]. ``population=0`` is the single-trial step.
+
+    ``mesh_plan`` (a process group joined; ``parallel.mesh``): every rank
+    calls the step with the same global batch and directions, renders its
+    rows over its slice of the rays and assembles the global prediction with
+    one all-reduce; the criterion runs on the whole batch on every rank, the
+    parameter gradients are summed over the world, and the optimizer runs on
+    every rank. ``render`` assembles the global prediction the same way.
     """
     runtime_hp = bool(getattr(tc, "runtime_hparams", False))
     if population:
@@ -259,18 +283,27 @@ def make_train_step(
             "population mode needs runtime_hparams=True: the K trials differ "
             "only in the runtime hyper-parameter bundle"
         )
+        if mesh_plan is not None:
+            raise ValueError("population mode is single-device: it takes no mesh_plan")
     compute_dtype = (
         None if tc.compute_dtype in ("float32", "none", None) else getattr(torch, tc.compute_dtype)
     )
     default_hp: Dict[str, Dict[str, torch.Tensor]] = {}  # by device, for runtime steps without hp
 
     def render(params, batch: Dict[str, torch.Tensor], dirs: torch.Tensor) -> torch.Tensor:
-        return render_fused(
+        ray_weights = None
+        if mesh_plan is not None:
+            batch_size = batch["pos_rx"].shape[0]
+            batch = mesh_plan.shard_batch(batch)
+            dirs, ray_weights = mesh_plan.shard_rays(dirs)
+        pred = render_fused(
             params, fstatic, consts, rc,
             batch["pos_rx"], batch["pos_tx"], direction_tx=batch.get("rot_tx"),
             ch_idx=batch.get("ch_idx"), dirs=dirs, compute_dtype=compute_dtype,
             shell_chunk=tc.shell_chunk, remat=bool(tc.remat), point_budget=tc.point_budget,
+            ray_weights=ray_weights,
         )
+        return pred if mesh_plan is None else assemble_prediction(pred, mesh_plan, batch_size)
 
     def losses(pred: torch.Tensor, wave: torch.Tensor, hp) -> Tuple[torch.Tensor, LossBundle]:
         """(the loss to differentiate, the bundle): per trial for a population."""
@@ -307,9 +340,10 @@ def make_train_step(
         pred = render(params, batch, dirs)
         total, bundle = losses(pred, batch["wave"], hp if runtime_hp else None)
         grads_flat = torch.autograd.grad(total, [t for _, t in named], allow_unused=True)
-        grads = unflatten(params, {
-            n: torch.zeros_like(t) if d is None else d for (n, t), d in zip(named, grads_flat)
-        })
+        grads_flat = [torch.zeros_like(t) if d is None else d for (_, t), d in zip(named, grads_flat)]
+        if mesh_plan is not None:
+            grads_flat = all_reduce_sum(grads_flat)
+        grads = unflatten(params, {n: d for (n, _), d in zip(named, grads_flat)})
         bundle = LossBundle(*(x.detach() for x in bundle))
         with torch.no_grad():
             skip = ~torch.isfinite(bundle.energy)

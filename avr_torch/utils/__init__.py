@@ -1,1 +1,2 @@
-"""Logging, profiling and validation figures."""
+"""Logging, profiling, figures and the report readers (TensorBoard events, config
+sweeps), and microphone beam patterns."""

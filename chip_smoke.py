@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--profile DIR]
 
 Builds the port's CUDA kernels from ``avr_torch/ops/csrc`` (nvcc, cached
-in ``build/avr_torch_kernels/``) and drives four paths of the port, each
+in ``build/avr_torch_kernels/``) and drives five paths of the port, each
 at full width with random weights from a seed:
 
   * the flagship training step (complex field, ``avr_torch/flagship.py``):
@@ -25,7 +25,17 @@ at full width with random weights from a seed:
     step, 3 steps with 3 + 3 launches of the K-batched encode kernels per
     step, each trial held against a single-trial step of its own; then
     ``python -m avr_torch hpo --pop 4 --variant runtime`` with the iteration
-    budget cut to 2, which tells 4 trials.
+    budget cut to 2, which tells 4 trials;
+  * multi-device training of the same recipe (``parallel_array``): the
+    data × ray plan on gloo ranks that share the card, spawned with
+    torchrun's environment and joined through ``initialize_multihost`` into
+    ``AVRRunner(..., mesh_plan=)``, 4 ranks as data 2 × ray 2 and 3 ranks
+    as ray 3 (2050 rays padded to 2052), 2 steps each with a checkpoint
+    after each, 3 + 3 encode launches per rank per step, held against
+    single-process steps (losses, the summed gradient's norm, updates);
+    each rank's encode calls held against the plain versions at its
+    shapes; prints each rank's step, all-reduce time and bytes and peak
+    memory.
 
 Before each path it holds each kernel against its plain PyTorch version
 at that path's shapes and checks the card against the plain CPU path on a
@@ -41,6 +51,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -67,6 +78,9 @@ ARRAY_CONFIG = os.path.join(ROOT, "configs", "avr_synthetic_array.yml")
 ARRAY_GROUPS = 5
 # shell chunk of the array step's streaming run
 STREAMING_SHELL_CHUNK = 8
+# runs of the parallel_array phase (name, ranks, data axis) and their steps
+PARALLEL_RUNS = (("data2_ray2", 4, 2), ("ray3", 3, 1))
+PARALLEL_STEPS = 2
 # trials per population step, and the known-good seed trial of the array
 # recipe's runtime-variant study (scripts/hpo_real_study.py:126-131)
 POP_K = 4
@@ -1143,32 +1157,52 @@ def compare_lane(torch, k, lane_after, lane_before, serial_after, pop_bundle, se
     array recipe up to 2.7% of a leaf's entries did, all at the first step.
     A lane given another trial's bundle differs in nearly every entry. The
     update's relative L2 difference is printed."""
-    from avr_torch.train.state import named_leaves
-
     terms = {}
     for name, a, b in zip(serial_bundle._fields, pop_bundle, serial_bundle):
         a, b = float(a[k]), float(b)
         terms[name] = abs(a - b) / max(abs(b), 1e-12)
         check(abs(a - b) <= 1e-3 * abs(b) + 1e-12, f"lane {k} loss {name}: {a} against the single-trial step's {b}")
+    check(int(lane_after.step) == int(serial_after.step), f"lane {k} step count")
+    updates, failures = compare_updates(torch, f"lane {k}", lane_after.params, lane_before.params, serial_after.params)
+    check(not failures, "; ".join(failures))
+    return {"loss_rel_err": max(terms.values()), **updates}
+
+
+def compare_updates(torch, label, after, before, reference):
+    """The update after − before of every leaf against the reference
+    update reference − before (``compare_lane``'s rule): at most 10% of a
+    leaf's entries (at least one) may differ by more than 1% of the leaf's
+    largest reference move, and none by more than twice that move. Returns
+    (the worst relative L2 difference and the worst share, with their
+    leaves, and per leaf with more than 1% of its entries off: that share
+    and the share of those entries whose reference move is below half the
+    largest, i.e. whose gradient is within Adam's eps of 0 on a fresh
+    state; the rule's violations, as messages)."""
+    from avr_torch.train.state import named_leaves
+
     worst_rel, worst_leaf, worst_share, share_leaf = 0.0, None, 0.0, None
-    before = dict(named_leaves(lane_before.params))
-    single = dict(named_leaves(serial_after.params))
-    for n, p in named_leaves(lane_after.params):
-        d_pop, d_ser = p - before[n], single[n] - before[n]
-        diff, move = (d_pop - d_ser).abs(), float(d_ser.abs().max())
-        rel = float(torch.linalg.vector_norm(d_pop - d_ser) / torch.linalg.vector_norm(d_ser).clamp_min(1e-30))
+    leaves, failures = {}, []
+    before = dict(named_leaves(before))
+    ref = dict(named_leaves(reference))
+    for n, p in named_leaves(after):
+        d_got, d_ref = p - before[n], ref[n] - before[n]
+        diff, move = (d_got - d_ref).abs(), float(d_ref.abs().max())
+        rel = float(torch.linalg.vector_norm(d_got - d_ref) / torch.linalg.vector_norm(d_ref).clamp_min(1e-30))
         if rel > worst_rel:
             worst_rel, worst_leaf = rel, n
-        n_off = int((diff > 1e-2 * move).sum())
+        off = diff > 1e-2 * move
+        n_off = int(off.sum())
         if n_off / diff.numel() > worst_share:
             worst_share, share_leaf = n_off / diff.numel(), n
-        check(n_off <= max(1, 0.1 * diff.numel()),
-              f"lane {k} leaf {n}: {n_off} of {diff.numel()} entries' updates differ from the single-trial step's")
-        check(float(diff.max()) <= 2 * move + 1e-12,
-              f"lane {k} leaf {n}: an entry moves beyond twice the single-trial step's largest move")
-    check(int(lane_after.step) == int(serial_after.step), f"lane {k} step count")
-    return {"loss_rel_err": max(terms.values()), "worst_update_rel_l2": worst_rel, "worst_leaf": worst_leaf,
-            "worst_share_off": worst_share, "worst_share_leaf": share_leaf}
+        if n_off > 0.01 * diff.numel():
+            small = int((off & (d_ref.abs() < 0.5 * move)).sum())
+            leaves[n] = {"share_off": n_off / diff.numel(), "off_with_small_move": small / n_off}
+        if n_off > max(1, 0.1 * diff.numel()):
+            failures.append(f"{label} leaf {n}: {n_off} of {diff.numel()} entries' updates differ from the reference step's")
+        if float(diff.max()) > 2 * move + 1e-12:
+            failures.append(f"{label} leaf {n}: an entry moves beyond twice the reference step's largest move")
+    return {"worst_update_rel_l2": worst_rel, "worst_leaf": worst_leaf, "worst_share_off": worst_share,
+            "worst_share_leaf": share_leaf, "leaves_off": leaves}, failures
 
 
 def phase_population_array(torch, dev, profile_dir, results):
@@ -1271,6 +1305,17 @@ def phase_population_array(torch, dev, profile_dir, results):
                      profile_dir, "population_array_step")
 
 
+def state_on(state, device):
+    """A train state's tensors on ``device`` (a copy where it moves them)."""
+    from avr_torch.train.state import AdamState, TrainState, tree_map
+
+    def to(tree):
+        return tree_map(lambda t: t.detach().to(device), tree)
+
+    return TrainState(to(state.params), AdamState(to(state.opt_state.mu), to(state.opt_state.nu)),
+                      state.step.detach().to(device))
+
+
 def clone_state(torch, state):
     """A copy of a train state on the device (the lanes' state before a step)."""
     from avr_torch.train.state import AdamState, TrainState, tree_map
@@ -1330,6 +1375,379 @@ def phase_hpo_cli(torch, dev, results):
            "objectives": [v for _, _, v in rows], "wall_s": wall_s, "launches": launches}
     results["hpo_cli"] = rec
     emit(rec)
+
+
+def params_digest(torch, params) -> str:
+    """sha256 over the bytes of every leaf, in tree order."""
+    import hashlib
+
+    from avr_torch.train.state import named_leaves
+
+    h = hashlib.sha256()
+    for n, t in named_leaves(params):
+        h.update(n.encode())
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def recorded_grad_norms(torch):
+    """Inside: the global L2 norm (on the device; each leaf's in fp32, their
+    combination in fp64) of the gradients that each optimizer step is given
+    (under a plan, after their all-reduce), appended to the yielded list."""
+    from avr_torch.train import state as tstate
+
+    real, norms = tstate.apply_optimizer, []
+
+    def recording(state, grads, *args, **kwargs):
+        leaves = [torch.linalg.vector_norm(g).double() for _, g in tstate.named_leaves(grads)]
+        norms.append(torch.linalg.vector_norm(torch.stack(leaves)))
+        return real(state, grads, *args, **kwargs)
+
+    tstate.apply_optimizer = recording
+    try:
+        yield norms
+    finally:
+        tstate.apply_optimizer = real
+
+
+@contextlib.contextmanager
+def recorded_encode_calls():
+    """Inside: the inputs of every encode forward and backward that the
+    field runs (``models/hashgrid.py``'s calls of the two wrappers), the
+    table and the cotangent cloned, appended to the yielded lists."""
+    from avr_torch.models import hashgrid
+
+    real_fwd, real_bwd = hashgrid.encode_rows, hashgrid.encode_backward
+    calls = {"encode": [], "encode_bwd": []}
+
+    def fwd(table, levels, x, round_bf16=False):
+        calls["encode"].append((table.detach().clone(), levels, x, round_bf16))
+        return real_fwd(table, levels, x, round_bf16=round_bf16)
+
+    def bwd(g, levels, x, n_rows, round_bf16=False):
+        calls["encode_bwd"].append((g.detach().clone(), levels, x, n_rows, round_bf16))
+        return real_bwd(g, levels, x, n_rows, round_bf16=round_bf16)
+
+    hashgrid.encode_rows, hashgrid.encode_backward = fwd, bwd
+    try:
+        yield calls
+    finally:
+        hashgrid.encode_rows, hashgrid.encode_backward = real_fwd, real_bwd
+
+
+def check_encode_calls(torch, calls) -> list:
+    """Each recorded encode call again through its wrapper on the card,
+    against its plain version on the same inputs, by ``phase_encode_array``'s
+    rules for the forward (bf16 bit-equal, fp32 within 1e-6 of scale); the
+    backward row by row within the bound of two fp32 sums of the row's terms
+    taken in different orders (below). One record per call, with ``ok``."""
+    from avr_torch.ops import hashgrid_encode as he
+
+    recs = []
+    for table, levels, x, rb in calls["encode"]:
+        ref = he.encode_rows_reference(table, levels, x, round_bf16=rb)
+        got = he.encode_rows(table, levels, x, round_bf16=rb)
+        scale, err, n_diff = float(ref.abs().max()), float((got - ref).abs().max()), int((got != ref).sum())
+        recs.append({"kernel": "encode", "N": x.shape[0], "n_rows": table.shape[0], "bf16": rb,
+                     "max_abs_err": err, "scale": scale, "values_differ": n_diff,
+                     "ok": n_diff == 0 if rb else err <= 1e-6 * scale})
+        del ref, got
+    u = 2.0 ** -24  # fp32 unit roundoff
+    for g, levels, x, n_rows, rb in calls["encode_bwd"]:
+        ref = he.encode_backward_reference(g, levels, x, n_rows, round_bf16=rb)
+        got = he.encode_backward(g, levels, x, n_rows, round_bf16=rb)
+        again = he.encode_backward_reference(g, levels, x, n_rows, round_bf16=rb)
+        scale, err = float(ref.abs().max()), float((got - ref).abs().max())
+        plain_err = float((again - ref).abs().max())
+        del again
+        # Kernel and plain version add the same terms in fp32 in different
+        # orders (the plain version's index_add_ itself in no fixed order),
+        # so each is within gamma_n · Σ|t| of the exact sum of a row of n
+        # terms (gamma_n = n·u / (1 - n·u), any order) and the two within
+        # twice that.
+        idx = he.corners_reference(levels, x)[0].long()
+        n = torch.bincount(idx[(idx >= 0) & (idx < n_rows)], minlength=n_rows).double()[:, None]
+        del idx
+        abs_sum = he.encode_backward_reference(g.abs(), levels, x, n_rows, round_bf16=rb).double()
+        bound = 2 * n * u / (1 - n * u) * abs_sum
+        ratio = float(((got - ref).abs().double() / bound).nan_to_num(0.0, posinf=float("inf")).max())
+        recs.append({"kernel": "encode_bwd", "N": x.shape[0], "n_rows": n_rows, "bf16": rb,
+                     "max_abs_err": err, "scale": scale, "plain_vs_plain_max_abs_err": plain_err,
+                     "max_terms_per_row": int(n.max()), "worst_err_over_bound": ratio, "ok": ratio <= 1.0})
+        del ref, got, n, abs_sum, bound
+    return recs
+
+
+def free_port() -> int:
+    """A TCP port on localhost that nothing listens on now."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def parallel_rank(rank: int, world: int, n_data: int, tmp: str, name: str, port: int) -> None:
+    """One rank of a ``parallel_array`` run, spawned by the phase with the
+    environment torchrun gives a rank (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``MASTER_ADDR`` localhost, ``MASTER_PORT`` ``port``).
+    It goes through the port's multi-device entry: ``initialize_multihost``
+    with a bare ``cuda`` and gloo (every rank on cuda:0 of the one card),
+    ``make_mesh_plan``, and ``AVRRunner(..., mesh_plan=)`` on the
+    port-written set in ``tmp/data`` with its logs in ``tmp/logs_{name}``
+    (the seed state broadcast from rank 0). Then PARALLEL_STEPS of the
+    runner's plan step on the phase's batches and directions, each followed
+    by ``save_checkpoint`` (rank 0 writes, every rank waits). Every
+    ``all_reduce`` is timed to a synchronise on either side (the wait for
+    the other ranks included) and the global norm of the all-reduced
+    gradient is recorded. The encode calls of the first step are recorded
+    and, after it, held against their plain versions
+    (``check_encode_calls``). Writes ``rank{r}_{name}.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from avr_torch.parallel.mesh import initialize_multihost, make_mesh_plan
+    from avr_torch.train.runner import AVRRunner
+    from avr_torch.train.state import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    dev = initialize_multihost("cuda", "gloo")
+    real = dist.all_reduce
+    try:
+        check(dev == torch.device("cuda", 0), f"rank {rank}: gloo with a bare cuda gave {dev}")
+        inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=True)
+        cfg = array_config()
+        cfg.path.logdir = os.path.join(tmp, f"logs_{name}")
+        tc = cfg.train
+        plan = make_mesh_plan(batch_size=tc.batch_size, data_parallel=n_data)
+        check((plan.n_data, plan.n_ray, plan.rank) == (n_data, world // n_data, rank), f"rank {rank}: plan {plan}")
+        runner = AVRRunner(cfg, os.path.join(tmp, "data"), device=dev, mesh_plan=plan)
+        init_digest = params_digest(torch, runner.state.params)
+        rays, weights = plan.shard_rays(inputs["dirs"][0].to(dev))
+        reduces = []
+
+        def timed(tensor, *args, **kwargs):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = real(tensor, *args, **kwargs)
+            torch.cuda.synchronize(dev)
+            reduces.append((tensor.numel() * tensor.element_size(), (time.perf_counter() - t0) * 1e3))
+            return out
+
+        dist.all_reduce = timed
+        steps, encode_checks = [], None
+        for i in range(PARALLEL_STEPS):
+            batch = tree_map(lambda t: t.to(dev), inputs["batches"][i])
+            dirs = inputs["dirs"][i].to(dev)
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            reduces.clear()
+            reset_launch_counts()
+            with recorded_grad_norms(torch) as norms, \
+                    (recorded_encode_calls() if i == 0 else contextlib.nullcontext()) as calls:
+                t0 = time.perf_counter()
+                runner.state, bundle = runner._step_fn(runner.state, batch, dirs)
+                torch.cuda.synchronize(dev)
+                ms = (time.perf_counter() - t0) * 1e3
+            launches = launch_counts()
+            steps.append({"ms": ms, "launches": launches, "losses": {k: float(v) for k, v in bundle.as_dict().items()},
+                          "grad_norm": float(norms[0]) if len(norms) == 1 else None,
+                          "all_reduce_calls": len(reduces), "all_reduce_bytes": sum(b for b, _ in reduces),
+                          "all_reduce_ms": sum(t for _, t in reduces), "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)})
+            runner.save_checkpoint()
+            if i == 0:
+                # let the recorded inputs go before the steady step, whose peak memory is recorded
+                encode_checks = check_encode_calls(torch, calls)
+                del calls
+                torch.cuda.empty_cache()
+        dist.all_reduce = real
+        runner.writer.close()
+        rows = plan.rows(tc.batch_size)
+        rec = {"rank": rank, "device": str(dev), "plan": [plan.n_data, plan.n_ray], "rows": [rows.start, rows.stop],
+               "rays": rays.shape[0], "padded_rays": 0 if weights is None else int((weights == 0).sum()),
+               "steps": steps, "step": int(runner.state.step),
+               "checkpoints": runner.checkpoint_steps(), "encode_checks": encode_checks,
+               "init_digest": init_digest, "digest": params_digest(torch, runner.state.params)}
+        with open(os.path.join(tmp, f"rank{rank}_{name}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.all_reduce = real
+        dist.destroy_process_group()
+
+
+def phase_parallel_array(torch, dev, smi: str, results) -> None:
+    """The data × ray plan (``avr_torch/parallel``) on the array recipe at
+    full width, bf16 compute: for each of PARALLEL_RUNS, ranks spawned with
+    torchrun's environment join gloo through the port's entry, all on the
+    card ``dev``, and take PARALLEL_STEPS steps of ``AVRRunner``'s plan step
+    from its seed state on the first batches of the port-written set and
+    directions drawn in the parent (``parallel_rank``). Each step is held
+    against a single-process step in the parent from the same state (the
+    seed's, then rank 0's checkpoint of the previous step), batch and
+    directions: every rank's loss terms within 1e-4 and the global norm of
+    its all-reduced gradient within 1e-3 (summed, not averaged), rank 0's
+    update by ``compare_updates``. Params bit-equal across ranks and to rank
+    0's last checkpoint, one checkpoint per step written by rank 0 alone,
+    3 + 3 encode launches per rank per step, and every rank's encode calls
+    of its first step (its rows and its ray slice, padded rays included)
+    held against the plain versions. The record is printed before the
+    checks fail. A failed rank fails the phase
+    (``torch.multiprocessing.spawn`` raises)."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from avr_torch import geometry
+    from avr_torch.data.synthetic import RoomSpec, write_real_env_dataset
+    from avr_torch.losses import CriterionConfig
+    from avr_torch.models import field
+    from avr_torch.render.common import make_consts
+    from avr_torch.train.state import AdamState, TrainState, init_state, make_train_step, tree_map
+
+    cfg = array_config()
+    tc, rc, T = cfg.train, cfg.render, cfg.model.signal_output_dim
+    batches, data_rec = array_batches(torch, dev, cfg)
+    run = [batches[i % len(batches)] for i in range(PARALLEL_STEPS)]
+    dgen = torch.Generator(device=dev).manual_seed(1)
+    dirs = [geometry.ray_directions(rc.n_azi, rc.n_ele, generator=dgen, device=dev) for _ in run]
+    fst = field.build_field(cfg.model, cfg.path.dataset_type)
+    consts = make_consts(rc, T, device=dev)
+    step, _ = make_train_step(fst, consts, rc, tc, CriterionConfig.from_configs(tc, rc))
+
+    def single_step(state, i):
+        """Step i in this process from ``state`` (host tensors or on the card):
+        (state before, state after, both on the host; ms; loss terms; the
+        gradient's global norm)."""
+        state = state_on(state, dev)
+        before = state_on(state, "cpu")
+        torch.cuda.synchronize(dev)
+        with recorded_grad_norms(torch) as norms:
+            t0 = time.perf_counter()
+            state, bundle = step(state, run[i], dirs[i])
+            torch.cuda.synchronize(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+        after = state_on(state, "cpu")
+        del state
+        torch.cuda.empty_cache()
+        return before, after, ms, {k: float(v) for k, v in bundle.as_dict().items()}, float(norms[0])
+
+    first = single_step(init_state(torch.Generator(device=dev).manual_seed(tc.seed), fst, tc, device=dev), 0)
+    init_digest = params_digest(torch, first[0].params)
+
+    records, failures = {}, []
+    tmp = tempfile.mkdtemp(prefix="avr_parallel_")
+    try:
+        write_real_env_dataset(os.path.join(tmp, "data"), RoomSpec(speed=rc.speed, fs=rc.fs, seq_len=T),
+                               ARRAY_GROUPS, seed=0)
+        torch.save({"batches": [tree_map(lambda t: t.cpu(), b) for b in run], "dirs": [d.cpu() for d in dirs]},
+                   os.path.join(tmp, "inputs.pt"))
+        for name, world, n_data in PARALLEL_RUNS:
+            t0 = time.perf_counter()
+            mp.spawn(parallel_rank, args=(world, n_data, tmp, name, free_port()), nprocs=world, join=True)
+            wall_s = time.perf_counter() - t0
+            ranks = []
+            for r in range(world):
+                with open(os.path.join(tmp, f"rank{r}_{name}.json")) as f:
+                    ranks.append(json.load(f))
+            logdir = os.path.join(tmp, f"logs_{name}", cfg.path.expname)
+            ckpts = sorted(os.listdir(os.path.join(logdir, "ckpts")), key=int)
+            rank0 = [torch.load(os.path.join(logdir, "ckpts", str(i + 1), "state.pt"), weights_only=True)
+                     for i in range(PARALLEL_STEPS)]
+            with open(os.path.join(logdir, "command_log.txt")) as f:
+                command_lines = len(f.read().splitlines())
+            # the single-process reference of each step, from rank 0's state before it
+            refs = [first] + [
+                single_step(TrainState(s["params"], AdamState(s["mu"], s["nu"]), s["step"]), i)
+                for i, s in enumerate(rank0[:-1], start=1)
+            ]
+            n_ray = world // n_data
+            per_rank = -(-rc.n_rays // n_ray)
+            padded = per_rank * n_ray - rc.n_rays
+            rows_per_rank = tc.batch_size // n_data
+            if [r["plan"] for r in ranks] != [[n_data, n_ray]] * world:
+                failures.append(f"{name}: plans {[r['plan'] for r in ranks]}")
+            if any(r["device"] != str(dev) for r in ranks):
+                failures.append(f"{name}: rank devices {[r['device'] for r in ranks]}")
+            if any((r["rays"], r["padded_rays"]) != (per_rank, padded * (r["rank"] % n_ray == n_ray - 1)) for r in ranks):
+                failures.append(f"{name}: ray slices {[(r['rays'], r['padded_rays']) for r in ranks]}")
+            if any(r["init_digest"] != init_digest for r in ranks):
+                failures.append(f"{name}: a rank's initial params differ from the seed's")
+            if len({r["digest"] for r in ranks}) != 1:
+                failures.append(f"{name}: the ranks' params are not bit-equal")
+            if params_digest(torch, rank0[-1]["params"]) != ranks[0]["digest"]:
+                failures.append(f"{name}: rank 0's last checkpoint is not the ranks' params")
+            want_ckpts = [str(i + 1) for i in range(PARALLEL_STEPS)]
+            if ckpts != want_ckpts or any(r["checkpoints"] != list(range(1, PARALLEL_STEPS + 1)) for r in ranks):
+                failures.append(f"{name}: checkpoints {ckpts}, seen by the ranks {[r['checkpoints'] for r in ranks]}")
+            if command_lines != 1:
+                failures.append(f"{name}: {command_lines} lines in command_log.txt, want rank 0's one")
+            terms, norm_errs = [0.0] * PARALLEL_STEPS, [0.0] * PARALLEL_STEPS
+            for r in ranks:
+                if r["step"] != PARALLEL_STEPS:
+                    failures.append(f"{name} rank {r['rank']}: step count {r['step']}")
+                for i, (st, ref) in enumerate(zip(r["steps"], refs)):
+                    if st["launches"] != counts(encode=3, encode_bwd=3):
+                        failures.append(f"{name} rank {r['rank']} step {i}: launches {st['launches']}, want 3 + 3")
+                    for k, b in ref[3].items():
+                        a = st["losses"][k]
+                        terms[i] = max(terms[i], abs(a - b) / max(abs(b), 1e-12))
+                        if not (a == a and abs(a) != float("inf") and abs(a - b) <= 1e-4 * abs(b) + 1e-12):
+                            failures.append(f"{name} rank {r['rank']} step {i}: {k} {a} against the single-process step's {b}")
+                    a, b = st["grad_norm"], ref[4]
+                    if a is None or not abs(a - b) <= 1e-3 * b:
+                        failures.append(f"{name} rank {r['rank']} step {i}: gradient norm {a} against the "
+                                        f"single-process step's {b}")
+                    else:
+                        norm_errs[i] = max(norm_errs[i], abs(a - b) / b)
+                checks = r["encode_checks"]
+                failures += [f"{name} rank {r['rank']}: {c['kernel']} at N = {c['N']} (bf16 {c['bf16']}) "
+                             f"off its plain version, max|err| {c['max_abs_err']} of {c['scale']}, "
+                             f"{c.get('worst_err_over_bound')} of the summation bound"
+                             for c in checks if not c["ok"]]
+                for kernel in ("encode", "encode_bwd"):
+                    seen = sorted(c["N"] for c in checks if c["kernel"] == kernel)
+                    if len(seen) != 3 or per_rank not in seen or rows_per_rank * per_rank * rc.n_samples not in seen:
+                        failures.append(f"{name} rank {r['rank']}: {kernel} held at N = {seen}, want its "
+                                        f"{per_rank} rays and {rows_per_rank} × {per_rank} × {rc.n_samples} points")
+            updates = []
+            for i, (ref, got) in enumerate(zip(refs, rank0)):
+                u, f = compare_updates(torch, f"{name} step {i}", got["params"], ref[0].params, ref[1].params)
+                updates.append(u)
+                failures += f
+            steady = [r["steps"][-1] for r in ranks]
+            records[name] = {
+                "world": world, "data": n_data, "ray": n_ray, "rays_per_rank": per_rank, "padded_rays": padded,
+                "rows_per_rank": rows_per_rank, "wall_s": wall_s, "loss_rel_err_per_step": terms,
+                "grad_norm_rel_err_per_step": norm_errs, "single_grad_norm_per_step": [ref[4] for ref in refs],
+                "updates_per_step": updates,
+                "encode_checks_per_rank": [
+                    [{k: v for k, v in c.items() if k not in ("n_rows", "ok")}
+                     for c in r["encode_checks"]]
+                    for r in ranks
+                ],
+                "single_step_ms": [ref[2] for ref in refs],
+                "step_ms": [[st["ms"] for st in r["steps"]] for r in ranks],
+                "steady_ms_per_rank": [st["ms"] for st in steady],
+                "all_reduce_ms_per_rank": [st["all_reduce_ms"] for st in steady],
+                "all_reduce_bytes_per_step": steady[0]["all_reduce_bytes"],
+                "all_reduce_calls_per_step": steady[0]["all_reduce_calls"],
+                "peak_mem_bytes_per_rank": [st["peak_mem_bytes"] for st in steady],
+                "launches_per_rank_per_step": steady[0]["launches"],
+            }
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = {"phase": "parallel_array", "steps": PARALLEL_STEPS, "compute_dtype": tc.compute_dtype,
+           "batch": tc.batch_size, "rays": rc.n_rays, "shells": rc.n_samples, "T": T,
+           "backend": "gloo", "entry": "initialize_multihost + AVRRunner(mesh_plan=)",
+           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "runs": records, "data": data_rec}
+    results["parallel"] = records
+    emit(rec)
+    check(not failures, "parallel_array: " + "; ".join(failures))
 
 
 def profile_step(torch, step, state, batch, gen, steady_ms: float, profile_dir: str, name: str) -> None:
@@ -1484,6 +1902,8 @@ def main() -> int:
     phase_runner_array(torch, dev, array_config(), results)
     phase_population_array(torch, dev, args.profile, results)
     phase_hpo_cli(torch, dev, results)
+    torch.cuda.empty_cache()
+    phase_parallel_array(torch, dev, smi, results)
     emit({"phase": "profiler_misses", **PROFILER_MISSES})
 
     kernels = (  # name, source, the TPU code it replaces, key of its results and launch count
@@ -1508,6 +1928,8 @@ def main() -> int:
                 "launches_per_validation_batch": results["runner"]["launches_per_validation_batch"][key],
             },
             **({"population": population_entry(results, key)} if key != "scatter" else {}),
+            "parallel_array": {name: {"launches_per_rank_per_step": r["launches_per_rank_per_step"][key],
+                                      "ranks": r["world"]} for name, r in results["parallel"].items()},
         }
         for name, src, replaces, key in kernels
     ]})
