@@ -1,5 +1,5 @@
 """Dataset loading for the four reference formats (port of
-``avr_tpu/data/loaders.py``, numpy only).
+``avr_tpu/data/loaders.py``).
 
 Numpy re-design of reference/datasets_loader.py (WaveLoader, :10-220):
 every dataset is small enough to live in host memory as flat arrays, with
@@ -18,14 +18,20 @@ targets stored as the complex64 rFFT of seq_len-sample IRs
     test/ subdirs (:151-195). Train-time ±N(0, 0.1²) position jitter is
     applied by the sampler, not here.
 
-The JAX package can hand the npy/wav decode to its C++ loader
-(``avr_tpu/native``); the port decodes with numpy, which gives the same
-arrays.
+The MeshRIR .npy and RAF .wav files are decoded in one call per split by
+the port's C++ decoder (``avr_torch.native``), as the JAX package decodes
+them with its own. The numpy decode beside it (``_decode_npy_plain``,
+``_decode_wav_plain``) gives the same arrays and takes over in two cases,
+each logged: there is no g++ on PATH (one warning per process), or the
+decoder rejects a batch (a warning naming the file and the reason, counted
+in ``native.COUNTS["rejected"]``). A file that neither decodes raises the
+numpy decode's error.
 """
 
 from __future__ import annotations
 
 import glob
+import logging
 import os
 import pickle
 from dataclasses import dataclass
@@ -33,8 +39,12 @@ from typing import List, Optional
 
 import numpy as np
 
+from avr_torch import native
 from avr_torch.data import wav as wav_lib
 from avr_torch.geometry import quaternion_to_direction
+
+log = logging.getLogger(__name__)
+_warned_no_compiler = False
 
 
 @dataclass
@@ -119,8 +129,30 @@ def _load_mesh_rir(base_folder, eval, seq_len, fs) -> Dataset:
     return _pack(waves, rxs, txs, None, None, "MeshRIR", fs, seq_len)
 
 
+def _decoded(native_decode, plain_decode) -> np.ndarray:
+    """The native decode of a batch, or the plain one where there is no g++
+    or the decoder rejects the batch (both logged)."""
+    global _warned_no_compiler
+    if not native.available():
+        if not _warned_no_compiler:
+            log.warning("no g++ on PATH: dataset files are decoded with numpy, not the native decoder")
+            _warned_no_compiler = True
+        return plain_decode()
+    try:
+        return native_decode()
+    except native.Rejected as e:
+        log.warning("%s; its batch is decoded with numpy", e)
+        return plain_decode()
+
+
 def _batched_npy(paths, seq_len, stride, start) -> np.ndarray:
     """Decode per-IR .npy files: [n, seq_len] float32, zero-padded."""
+    return _decoded(lambda: native.load_npy_batch(paths, seq_len, stride, start),
+                    lambda: _decode_npy_plain(paths, seq_len, stride, start))
+
+
+def _decode_npy_plain(paths, seq_len, stride, start) -> np.ndarray:
+    """The numpy decode of ``_batched_npy``."""
     out = np.zeros((len(paths), seq_len), np.float32)
     for i, p in enumerate(paths):
         a = np.load(p)[0, ::stride][start : start + seq_len]
@@ -174,7 +206,13 @@ def _load_raf(base_folder, eval, seq_len, fs) -> Dataset:
 
 
 def _batched_wav(paths, seq_len, stride) -> np.ndarray:
-    """Decode WAV files: [n, seq_len] float32, zero-padded."""
+    """Decode WAV files: [n, seq_len] float32, mono, zero-padded."""
+    return _decoded(lambda: native.load_wav_batch(paths, seq_len, stride),
+                    lambda: _decode_wav_plain(paths, seq_len, stride))
+
+
+def _decode_wav_plain(paths, seq_len, stride) -> np.ndarray:
+    """The numpy decode of ``_batched_wav``."""
     out = np.zeros((len(paths), seq_len), np.float32)
     for i, p in enumerate(paths):
         a, _sr = wav_lib.read_wav(p)

@@ -72,6 +72,52 @@ def read_wav(path: str, mono: bool = True):
     return x, sample_rate
 
 
+# sample formats of write_wav_as: name → (format tag, bits per sample)
+SAMPLE_FORMATS = {
+    "pcm8": (1, 8), "pcm16": (1, 16), "pcm24": (1, 24), "pcm32": (1, 32),
+    "float32": (3, 32), "float64": (3, 64),
+}
+
+
+def write_wav_as(
+    path: str, samples: np.ndarray, sample_rate: int, sample_format: str,
+    extensible: bool = False, chunks_before_data=(),
+) -> None:
+    """Write samples in [−1, 1] ([n] or [n, channels]) in one of
+    SAMPLE_FORMATS (PCM rounded to the nearest level and clipped; 8-bit
+    unsigned), as WAVE_FORMAT_EXTENSIBLE if asked, with the (id, payload)
+    chunks given between fmt and data (odd sizes get their pad byte): the
+    file layouts the decoders are held to."""
+    tag, bits = SAMPLE_FORMATS[sample_format]
+    x = np.asarray(samples, np.float64)
+    n_channels = 1 if x.ndim == 1 else x.shape[1]
+    if tag == 3:
+        payload = x.astype("<f4" if bits == 32 else "<f8").tobytes()
+    elif bits == 8:  # unsigned, 128 is zero
+        payload = np.clip(np.round(x * 128.0) + 128.0, 0, 255).astype(np.uint8).tobytes()
+    else:
+        full = 2.0 ** (bits - 1)
+        q = np.clip(np.round(x * full), -full, full - 1).astype("<i4")
+        if bits == 16:
+            payload = q.astype("<i2").tobytes()
+        elif bits == 24:  # the low three bytes of each little-endian int32
+            payload = q.view(np.uint8).reshape(-1, 4)[:, :3].tobytes()
+        else:
+            payload = q.tobytes()
+    block = n_channels * bits // 8
+    fmt = struct.pack("<HHIIHH", 0xFFFE if extensible else tag, n_channels, sample_rate,
+                      sample_rate * block, block, bits)
+    if extensible:  # cbSize, valid bits, channel mask, sub-format GUID
+        fmt += struct.pack("<HHI", 22, bits, 0) + struct.pack("<H", tag) + bytes.fromhex(
+            "000000001000800000aa00389b71")
+    body = b"WAVE" + b"fmt " + struct.pack("<I", len(fmt)) + fmt
+    for cid, data in chunks_before_data:
+        body += cid + struct.pack("<I", len(data)) + data + b"\0" * (len(data) % 2)
+    body += b"data" + struct.pack("<I", len(payload)) + payload + b"\0" * (len(payload) % 2)
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", len(body)) + body)
+
+
 def write_wav(path: str, samples: np.ndarray, sample_rate: int) -> None:
     """Write float32 samples in [−1,1] as IEEE-float WAV."""
     x = np.asarray(samples, np.float32)

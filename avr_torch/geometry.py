@@ -64,6 +64,22 @@ def normalize_points(pts: torch.Tensor, xyz_min: torch.Tensor, xyz_max: torch.Te
     return 2.0 * (pts - xyz_min) / (xyz_max - xyz_min) - 1.0
 
 
+def denormalize_points(pts: torch.Tensor, xyz_min: torch.Tensor, xyz_max: torch.Tensor) -> torch.Tensor:
+    """[−1,1] box → world coordinates."""
+    return (pts + 1.0) / 2.0 * (xyz_max - xyz_min) + xyz_min
+
+
+def rotate_xy(points: torch.Tensor, center: torch.Tensor, angle_rad) -> torch.Tensor:
+    """Rotate points [..., 3] about ``center`` [..., 3] by ``angle_rad`` in
+    the horizontal plane; z is kept."""
+    angle = torch.as_tensor(angle_rad, dtype=points.dtype, device=points.device)
+    c, s = torch.cos(angle), torch.sin(angle)
+    rel = points - center
+    x = rel[..., 0] * c - rel[..., 1] * s
+    y = rel[..., 0] * s + rel[..., 1] * c
+    return torch.stack([x + center[..., 0], y + center[..., 1], points[..., 2]], dim=-1)
+
+
 def quaternion_to_direction(q) -> Tuple[float, float, float]:
     """Quaternion [x,y,z,w] → planar forward direction (host math, for the
     RAF loader).

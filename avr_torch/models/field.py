@@ -95,6 +95,10 @@ class FieldStatic:
     emb_dim_dec: int = 0
     emb_dim_sig: int = 0
 
+    @property
+    def sigma_feat_dim(self) -> int:
+        return self.sigma_encoder.n_output_dims
+
 
 def build_field(cfg: ModelConfig, dataset_type: str = "MeshRIR") -> FieldStatic:
     """Map a ModelConfig to a FieldStatic: RAF uses the complex variant,

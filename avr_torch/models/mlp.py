@@ -192,6 +192,10 @@ def apply_tail(
     return out_act(h)
 
 
+def first_layer_weight(params: Params) -> torch.Tensor:
+    return params["w"][0]
+
+
 def input_weight_slices(params: Params, sizes) -> list:
     """Split the first-layer weight rows by input-part sizes: with
     x = concat(parts), x @ W0 = Σᵢ partᵢ @ W0[rowsᵢ] (per trial for a

@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--profile DIR]
 
 Builds the port's CUDA kernels from ``avr_torch/ops/csrc`` (nvcc, cached
-in ``build/avr_torch_kernels/``) and drives five paths of the port, each
+in ``build/avr_torch_kernels/``) and drives six paths of the port, each
 at full width with random weights from a seed:
 
   * the flagship training step (complex field, ``avr_torch/flagship.py``):
@@ -26,6 +26,16 @@ at full width with random weights from a seed:
     step, each trial held against a single-trial step of its own; then
     ``python -m avr_torch hpo --pop 4 --variant runtime`` with the iteration
     budget cut to 2, which tells 4 trials;
+  * the flagship RAF recipe through the runner on decoded data
+    (``runner_flagship``): after ``native_decode`` builds the port's g++
+    npy/wav decoder (``avr_torch/native``) and holds it against the plain
+    numpy decode on every WAV layout and on RAF and MeshRIR sets of 4096
+    and 1024 files (timed against it), ``AVRRunner`` loads a port-written
+    RAF set of 80 samples through the decoder (80 files, 0 rejected
+    batches, bit-equal to the plain decode) and trains 4 iterations with
+    checkpoints and validations every 2 (5 + 5 encode launches per
+    iteration, 5 + 0 per validation batch), resumes bit-equal on the card
+    and renders from the checkpoint through ``python -m avr_torch render``;
   * multi-device training of the same recipe (``parallel_array``): the
     data × ray plan on gloo ranks that share the card, spawned with
     torchrun's environment and joined through ``initialize_multihost`` into
@@ -70,6 +80,12 @@ TRAIN_STEPS = 3
 # validations every 2), and timed render calls after it.
 RUNNER_ITERATIONS = 4
 RENDER_REPEATS = 5
+# RAF samples of the flagship runner's set (the last 20% are the test split)
+FLAGSHIP_RAF_FILES = 80
+# the native decoder's timing sets, and the timed runs of each decode
+NATIVE_RAF_FILES = 4096
+NATIVE_MESHRIR_FILES = 1024
+DECODE_REPEATS = 3
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ARRAY_CONFIG = os.path.join(ROOT, "configs", "avr_synthetic_array.yml")
@@ -207,7 +223,8 @@ def array_config():
 def corner_updates(torch, he, levels, x, g):
     """The encode backward as a stream of row updates: corner rows idx
     (int32 [M]) from the kernels' shared header, and (a function that
-    fills) upd [M, F] = w·g per corner, level-major as ``corners`` gives."""
+    fills) upd [M, F] = w·g per corner, level-major as ``corners`` gives;
+    it takes another g [N, L, F] as its argument)."""
     idx, w = he.corners(levels, x)
     N, F = x.shape[0], g.shape[-1]
     upd = torch.empty((idx.shape[0], F), device=x.device)
@@ -217,7 +234,7 @@ def corner_updates(torch, he, levels, x, g):
         groups.append((lo, hi, levels[lo].K, start, n))
         start += n
 
-    def mul():
+    def mul(g=g):
         for lo, hi, K, s0, n in groups:
             torch.mul(w[s0 : s0 + n].view(hi - lo, K, N, 1), g[:, lo:hi].permute(1, 0, 2).unsqueeze(1),
                       out=upd[s0 : s0 + n].view(hi - lo, K, N, F))
@@ -575,7 +592,8 @@ def phase_encode_population(torch, dev, fst, x, view, results):
     bit-equal: same arithmetic per table; backward within 1e-5 of scale:
     atomics in another order), timed against those POP_K launches. The
     bound counts each table's rows that the points reach once, x once and
-    the outputs once."""
+    the outputs once. The backward's library route is, per trial, ``mul``
+    of its fp32 corner update stream and ``index_add_`` into its table."""
     from avr_torch.ops import hashgrid_encode as he
 
     gen = torch.Generator(device=dev).manual_seed(8)
@@ -636,9 +654,21 @@ def phase_encode_population(torch, dev, fst, x, view, results):
                 "plain_ms": time_ms(
                     lambda: he.encode_backward_pop_reference(g, levels, xs, n_rows, round_bf16=rb),
                     iters=plain_iters, warmup=1),
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "bound_ms": b_ms, "bound_by": b_by,
             }
-        del tables, g
+        idx, upd, mul = corner_updates(torch, he, levels, xs, g[0])
+        buf = torch.zeros((K, n_rows, F), device=dev)
+
+        def library():
+            buf.zero_()
+            for k in range(K):
+                mul(g[k])
+                buf[k].index_add_(0, idx, upd)
+
+        lib_ms = time_ms(library, iters=3, warmup=1)
+        for mode in modes:
+            rec[f"backward_{mode}"]["library_ms"] = lib_ms
+        del idx, upd, mul, buf, tables, g
         out[name] = rec
     results["encode_population"] = {k: v for k, v in out.items() if k != "phase"}
     emit(out)
@@ -812,6 +842,7 @@ def phase_train(torch, dev, profile_dir, results):
         check(launches[k] == 5 * TRAIN_STEPS, f"kernel {k}: {launches[k]} launches in {TRAIN_STEPS} steps")
     results["launches"] = launches
     rec = train_record("train_flagship", cfg, step_ms, bundles, launches, peak)
+    results["flagship_steady_ms"] = rec["steady_ms_per_step"]
     emit(rec)
     if profile_dir:
         profile_step(torch, step, state, batch, gen, rec["steady_ms_per_step"], profile_dir, "train_step")
@@ -953,6 +984,152 @@ def equal_states(torch, a, b) -> bool:
     )
 
 
+def instrumented_train(torch, dev, runner):
+    """``runner.train()`` with its validations, saves and ``metric_cal``
+    timed, the launch counts set to 0 just before and read just after.
+    Returns (seconds, launches, peak memory, validations, save seconds);
+    each validation holds its iteration, split, seconds, seconds in
+    ``metric_cal`` and launches."""
+    from avr_torch.train import runner as runner_lib
+
+    vals, saves, metric_s = [], [], [0.0]
+    validate, save, metric_cal = runner.validate, runner.save_checkpoint, runner_lib.metric_cal
+
+    def timed_validate(it, mode_set="test", dirs=None):
+        c0, m0, t0 = launch_counts(), metric_s[0], time.perf_counter()
+        out = validate(it, mode_set, dirs)
+        vals.append({"it": it, "mode": mode_set, "s": time.perf_counter() - t0,
+                     "metric_cal_s": metric_s[0] - m0, "launches": since(c0)})
+        return out
+
+    def timed_save():
+        t0 = time.perf_counter()
+        step = save()
+        saves.append(time.perf_counter() - t0)
+        return step
+
+    def timed_metric_cal(*a, **k):
+        t0 = time.perf_counter()
+        out = metric_cal(*a, **k)
+        metric_s[0] += time.perf_counter() - t0
+        return out
+
+    runner.validate, runner.save_checkpoint, runner_lib.metric_cal = timed_validate, timed_save, timed_metric_cal
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        runner.train()
+    finally:
+        runner_lib.metric_cal = metric_cal
+    torch.cuda.synchronize(dev)
+    return time.perf_counter() - t0, launch_counts(), torch.cuda.max_memory_allocated(dev), vals, saves
+
+
+def check_runner_run(runner, launches, vals, encodes: int, npz_keys=()) -> dict:
+    """The checks of a RUNNER_ITERATIONS run with checkpoints and
+    validations every 2: the step, the checkpoints, finite train losses
+    and metrics of both splits, each test validation's npz (with
+    ``npz_keys``), ``encodes`` forward launches per validation render batch
+    and ``encodes`` + ``encodes`` per training iteration. Returns the
+    run's part of the phase record."""
+    import numpy as np
+
+    from avr_torch.train import runner as runner_lib
+
+    tc, T = runner.cfg.train, runner.cfg.model.signal_output_dim
+    bs, n_test, n_train = runner.batch_size, len(runner.test_data), len(runner.train_data)
+    check(int(runner.state.step) == RUNNER_ITERATIONS, f"runner step {int(runner.state.step)}")
+    check(runner.checkpoint_steps() == [2, 4], f"checkpoints {runner.checkpoint_steps()}")
+    m = read_jsonl(os.path.join(runner.logdir, "metrics.jsonl"))
+    loss = m.get("train_loss", {})
+    check(sorted(loss) == [1, 2, 3, 4] and all(np.isfinite(list(loss.values()))), f"train_loss {loss}")
+    for mode in ("test", "train"):
+        for it in (2, 4):
+            got = {k: m.get(f"{mode}_metric/{k}", {}).get(it) for k in runner_lib.METRIC_KEYS}
+            check(all(v is not None and np.isfinite(v) for v in got.values()), f"{mode}_metric@{it}: {got}")
+    for it in (2, 4):
+        with np.load(os.path.join(runner.logdir, "val_result", f"val_iter{it:06d}.npz")) as z:
+            p = z["pred_sig"]
+            check(p.shape == (n_test, T // 2 + 1) and p.dtype == np.complex64 and np.isfinite(p).all()
+                  and all(k in z.files for k in npz_keys), f"val_iter{it:06d}.npz pred_sig {p.shape} {p.dtype}")
+    # the validations' launches: the forward encodes and no backward per render batch
+    val_launch = {k: sum(v["launches"][k] for v in vals) for k in launches}
+    for v in vals:
+        n_rows = n_test if v["mode"] == "test" else min(n_train, runner_lib.TRAIN_VAL_BATCHES * bs)
+        n_b = -(-n_rows // bs)
+        want = counts(encode=encodes * n_b)
+        check(v["launches"] == want, f"validate {v['mode']}@{v['it']}: launches {v['launches']} != {want}")
+        v["batches"] = n_b
+    train_launch = {k: launches[k] - val_launch[k] for k in launches}
+    want = counts(encode=encodes * RUNNER_ITERATIONS, encode_bwd=encodes * RUNNER_ITERATIONS)
+    check(train_launch == want, f"training iterations' launches {train_launch} != {want}")
+
+    sps = m["samples_per_sec"]
+    iter_ms = {it: bs / sps[it] * 1e3 for it in sorted(sps)}
+    # the interval logged at `it` holds iteration it alone unless it-1 saved or validated
+    steady = [iter_ms[it] for it in iter_ms if it > 1 and (it - 1) % tc.save_freq and (it - 1) % tc.val_freq]
+    return {
+        "iterations": RUNNER_ITERATIONS, "batch": bs, "rays": runner.cfg.render.n_rays,
+        "shells": runner.cfg.render.n_samples, "T": T, "compute_dtype": tc.compute_dtype,
+        "rows": {"train": n_train, "test": n_test},
+        "ms_per_iteration": iter_ms, "steady_ms_per_iteration": sum(steady) / len(steady),
+        "validate_s": {mode: [v["s"] for v in vals if v["mode"] == mode] for mode in ("test", "train")},
+        "validate_batches": {v["mode"]: v["batches"] for v in vals},
+        "metric_cal_share": sum(v["metric_cal_s"] for v in vals) / sum(v["s"] for v in vals),
+        "launches": launches, "train_launches": train_launch,
+        "launches_per_iteration": {k: v / RUNNER_ITERATIONS for k, v in train_launch.items()},
+        "validation_launches": val_launch,
+        "launches_per_validation_batch": {k: v / sum(x["batches"] for x in vals) for k, v in val_launch.items()},
+        "test_metric_4": {k: m[f"test_metric/{k}"][4] for k in runner_lib.METRIC_KEYS}, "train_loss": loss,
+    }
+
+
+def check_render_cli(torch, dev, tmp, runner, resumed, encodes: int, keys=()):
+    """``python -m avr_torch render`` from ``runner``'s last checkpoint on the
+    test split of ``resumed`` (the optional query columns ``keys``), against
+    ``make_render_fn(resumed)`` called on the CLI's batches (another batch
+    shape rounds differently): bit-equal spectra, finite IRs, ``encodes``
+    forward launches per batch. Returns (render launches, the timed render
+    ms per batch)."""
+    import numpy as np
+
+    from avr_torch import __main__ as cli
+    from avr_torch.eval.rotate import make_render_fn
+
+    data, T, bs = resumed.test_data, runner.cfg.model.signal_output_dim, runner.batch_size
+    n_test = len(data)
+    q = os.path.join(tmp, "queries.npz")
+    np.savez(q, pos_rx=data.pos_rx, pos_tx=data.pos_tx, **{k: getattr(data, k) for k in keys})
+    out = os.path.join(tmp, "irs.npz")
+    conf = os.path.join(runner.logdir, "avr_conf.yml")
+    c0 = launch_counts()
+    cli.main(["render", "--config", conf, "--queries", q, "--out", out, "--time_domain", "--device", str(dev)])
+    render_launch = since(c0)
+    check(n_test % bs == 0, f"{n_test} test rows are no whole batches of {bs}")
+    render_fn = make_render_fn(resumed)
+    cols = dict(pos_rx=data.pos_rx, pos_tx=data.pos_tx, **{k: getattr(data, k) for k in keys})
+    batches = [{k: v[s : s + bs] for k, v in cols.items()} for s in range(0, n_test, bs)]
+
+    def render():  # ends in a copy to the host
+        return np.concatenate([render_fn(**b) for b in batches])
+
+    ref = render()
+    with np.load(out) as z:
+        spec, ir = z["spec"], z["ir"]
+    check(spec.shape == (n_test, T // 2 + 1) and spec.dtype == np.complex64 and np.isfinite(spec).all(),
+          f"render spec {spec.shape} {spec.dtype}")
+    check(np.array_equal(spec, ref), f"render CLI differs from make_render_fn: max {np.abs(spec - ref).max()}")
+    check(ir.shape == (n_test, T) and np.isfinite(ir).all(), f"render ir {ir.shape}")
+    want = counts(encode=encodes * -(-n_test // bs))
+    check(render_launch == want, f"render launches {render_launch} != {want}")
+    t0 = time.perf_counter()
+    for _ in range(RENDER_REPEATS):
+        render()
+    return render_launch, (time.perf_counter() - t0) / (RENDER_REPEATS * len(batches)) * 1e3
+
+
 def phase_runner_array(torch, dev, cfg, results) -> None:
     """The port's runner and CLI on the array recipe ``cfg`` at full width,
     on port-written data of ARRAY_GROUPS groups: train RUNNER_ITERATIONS
@@ -969,7 +1146,6 @@ def phase_runner_array(torch, dev, cfg, results) -> None:
 
     from avr_torch import __main__ as cli
     from avr_torch.data.synthetic import RoomSpec, write_real_env_dataset
-    from avr_torch.eval.rotate import make_render_fn
     from avr_torch.train import runner as runner_lib
 
     rc, tc, T = cfg.render, cfg.train, cfg.model.signal_output_dim
@@ -980,71 +1156,8 @@ def phase_runner_array(torch, dev, cfg, results) -> None:
         tc.total_iterations, tc.save_freq, tc.val_freq, tc.log_freq = RUNNER_ITERATIONS, 2, 2, 1
         cfg.path.logdir = os.path.join(tmp, "logs")
         runner = runner_lib.AVRRunner(cfg, d, device=dev)
-        bs, n_test, n_train = tc.batch_size, len(runner.test_data), len(runner.train_data)
-
-        # instrument the runner: launches and seconds per validate and save,
-        # seconds in metric_cal
-        vals, saves, metric_s = [], [], [0.0]
-        validate, save, metric_cal = runner.validate, runner.save_checkpoint, runner_lib.metric_cal
-
-        def timed_validate(it, mode_set="test", dirs=None):
-            c0, m0, t0 = launch_counts(), metric_s[0], time.perf_counter()
-            out = validate(it, mode_set, dirs)
-            vals.append({"it": it, "mode": mode_set, "s": time.perf_counter() - t0,
-                         "metric_cal_s": metric_s[0] - m0, "launches": since(c0)})
-            return out
-
-        def timed_save():
-            t0 = time.perf_counter()
-            step = save()
-            saves.append(time.perf_counter() - t0)
-            return step
-
-        def timed_metric_cal(*a, **k):
-            t0 = time.perf_counter()
-            out = metric_cal(*a, **k)
-            metric_s[0] += time.perf_counter() - t0
-            return out
-
-        runner.validate, runner.save_checkpoint, runner_lib.metric_cal = timed_validate, timed_save, timed_metric_cal
-        torch.cuda.synchronize(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        try:
-            runner.train()
-        finally:
-            runner_lib.metric_cal = metric_cal
-        torch.cuda.synchronize(dev)
-        train_s = time.perf_counter() - t0
-        launches = launch_counts()
-        peak = torch.cuda.max_memory_allocated(dev)
-
-        check(int(runner.state.step) == RUNNER_ITERATIONS, f"runner step {int(runner.state.step)}")
-        check(runner.checkpoint_steps() == [2, 4], f"checkpoints {runner.checkpoint_steps()}")
-        m = read_jsonl(os.path.join(runner.logdir, "metrics.jsonl"))
-        loss = m.get("train_loss", {})
-        check(sorted(loss) == [1, 2, 3, 4] and all(np.isfinite(list(loss.values()))), f"train_loss {loss}")
-        for mode in ("test", "train"):
-            for it in (2, 4):
-                got = {k: m.get(f"{mode}_metric/{k}", {}).get(it) for k in runner_lib.METRIC_KEYS}
-                check(all(v is not None and np.isfinite(v) for v in got.values()), f"{mode}_metric@{it}: {got}")
-        for it in (2, 4):
-            with np.load(os.path.join(runner.logdir, "val_result", f"val_iter{it:06d}.npz")) as z:
-                p = z["pred_sig"]
-                check(p.shape == (n_test, T // 2 + 1) and p.dtype == np.complex64 and np.isfinite(p).all()
-                      and "ch_idx" in z.files, f"val_iter{it:06d}.npz pred_sig {p.shape} {p.dtype}")
-        # the validations' launches: 3 forward and no backward per render batch
-        val_launch = {k: sum(v["launches"][k] for v in vals) for k in launches}
-        for v in vals:
-            n_rows = n_test if v["mode"] == "test" else min(n_train, runner_lib.TRAIN_VAL_BATCHES * bs)
-            n_b = -(-n_rows // bs)
-            want = counts(encode=3 * n_b)
-            check(v["launches"] == want, f"validate {v['mode']}@{v['it']}: launches {v['launches']} != {want}")
-            v["batches"] = n_b
-        train_launch = {k: launches[k] - val_launch[k] for k in launches}
-        want = counts(encode=3 * RUNNER_ITERATIONS, encode_bwd=3 * RUNNER_ITERATIONS)
-        check(train_launch == want, f"training iterations' launches {train_launch} != {want}")
+        train_s, launches, peak, vals, saves = instrumented_train(torch, dev, runner)
+        run = check_runner_run(runner, launches, vals, encodes=3, npz_keys=("ch_idx",))
 
         # resume: on the device bit-equal, on the CPU equal params
         cfg2 = copy.deepcopy(cfg)
@@ -1064,34 +1177,11 @@ def phase_runner_array(torch, dev, cfg, results) -> None:
         ckpt_bytes = os.path.getsize(os.path.join(runner.logdir, "ckpts", "4", runner_lib.CHECKPOINT_FILE))
 
         # render from the checkpoint through the CLI, against make_render_fn
-        data = resumed.test_data
-        q = os.path.join(tmp, "queries.npz")
-        np.savez(q, pos_rx=data.pos_rx, pos_tx=data.pos_tx, ch_idx=data.ch_idx)
-        out = os.path.join(tmp, "irs.npz")
-        conf = os.path.join(runner.logdir, "avr_conf.yml")
-        c0 = launch_counts()
-        cli.main(["render", "--config", conf, "--queries", q, "--out", out, "--time_domain",
-                  "--device", str(dev)])
-        render_launch = since(c0)
-        render_fn = make_render_fn(resumed)
-        rows = (data.pos_rx, data.pos_tx, data.ch_idx)
-        ref = render_fn(*rows)
-        with np.load(out) as z:
-            spec, ir = z["spec"], z["ir"]
-        check(spec.shape == (n_test, T // 2 + 1) and spec.dtype == np.complex64 and np.isfinite(spec).all(),
-              f"render spec {spec.shape} {spec.dtype}")
-        check(np.array_equal(spec, ref), f"render CLI differs from make_render_fn: max {np.abs(spec - ref).max()}")
-        check(ir.shape == (n_test, T), f"render ir {ir.shape}")
-        want = counts(encode=3 * -(-n_test // bs))
-        check(render_launch == want, f"render launches {render_launch} != {want}")
-        render_fn(*rows)
-        t0 = time.perf_counter()
-        for _ in range(RENDER_REPEATS):
-            render_fn(*rows)  # ends in a copy to the host
-        render_ms = (time.perf_counter() - t0) / RENDER_REPEATS * 1e3
+        render_launch, render_ms = check_render_cli(torch, dev, tmp, runner, resumed, 3, keys=("ch_idx",))
 
         # rotate the test groups by 90° steps and re-render them
         rot_dir = os.path.join(tmp, "rotate")
+        conf = os.path.join(runner.logdir, "avr_conf.yml")
         c0 = launch_counts()
         cli.main(["rotate", "--config", conf, "--dataset_dir", d, "--deg_step", "90", "--out_dir", rot_dir,
                   "--device", str(dev)])
@@ -1103,31 +1193,217 @@ def phase_runner_array(torch, dev, cfg, results) -> None:
         check(rotate_launch["encode"] == 3 * n_rot and rotate_launch["encode_bwd"] == 0,
               f"rotate launches {rotate_launch} for {n_rot} rotations")
 
-        sps = m["samples_per_sec"]
-        iter_ms = {it: bs / sps[it] * 1e3 for it in sorted(sps)}
-        # the interval logged at `it` holds iteration it alone unless it-1 saved or validated
-        steady = [iter_ms[it] for it in iter_ms if it > 1 and (it - 1) % tc.save_freq and (it - 1) % tc.val_freq]
-        val_s = {mode: [v["s"] for v in vals if v["mode"] == mode] for mode in ("test", "train")}
         rec = {
-            "phase": "runner_array", "iterations": RUNNER_ITERATIONS, "batch": bs, "rays": rc.n_rays,
-            "shells": rc.n_samples, "T": T, "compute_dtype": tc.compute_dtype,
-            "rows": {"train": n_train, "test": n_test}, "train_s": train_s,
-            "ms_per_iteration": iter_ms, "steady_ms_per_iteration": sum(steady) / len(steady),
-            "validate_s": val_s, "validate_batches": {v["mode"]: v["batches"] for v in vals},
-            "metric_cal_share": sum(v["metric_cal_s"] for v in vals) / sum(v["s"] for v in vals),
+            "phase": "runner_array", **run, "train_s": train_s,
             "checkpoint_bytes": ckpt_bytes, "save_s": saves, "restore_s": restore_s,
             "restore_cpu_s": restore_cpu_s, "render_ms_per_batch": render_ms,
-            "peak_mem_bytes": peak, "launches": launches, "train_launches": train_launch,
-            "launches_per_iteration": {k: v / RUNNER_ITERATIONS for k, v in train_launch.items()},
-            "validation_launches": val_launch,
-            "launches_per_validation_batch": {k: v / sum(x["batches"] for x in vals) for k, v in val_launch.items()},
-            "render_launches": render_launch, "rotate": {"rotations": n_rot, "launches": rotate_launch},
-            "test_metric_4": {k: m[f"test_metric/{k}"][4] for k in runner_lib.METRIC_KEYS},
-            "train_loss": loss, "train_array_steady_ms_per_step": results["array_steady_ms"],
+            "peak_mem_bytes": peak, "render_launches": render_launch,
+            "rotate": {"rotations": n_rot, "launches": rotate_launch},
+            "train_array_steady_ms_per_step": results["array_steady_ms"],
         }
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     results["runner"] = rec
+    emit(rec)
+
+
+def phase_native_decode(results) -> None:
+    """The port's native npy/wav decoder (``avr_torch.native``, g++, host
+    code) on this machine: its build (seconds, ``g++ --version``); every
+    WAV layout it must take against the plain numpy decode (mono bit-equal,
+    a downmix within rtol 1e-6 or one float32 ulp of full scale, 2^-23);
+    its time against the plain decode (median of DECODE_REPEATS, files in
+    the page cache) on a RAF set of NATIVE_RAF_FILES and a MeshRIR set of
+    NATIVE_MESHRIR_FILES files written by the port, with equal results;
+    and its -(i + 1) error on a missing file, named and counted."""
+    import ctypes
+    import glob
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from avr_torch import native
+    from avr_torch.data import loaders
+    from avr_torch.data import wav as wav_lib
+    from avr_torch.data.synthetic import RoomSpec, write_meshrir_dataset, write_raf_dataset
+
+    cxx = native.compiler()
+    check(cxx is not None, "no g++ on PATH: the native decoder cannot be built")
+    cached = native.lib_path(cxx).exists()
+    t0 = time.perf_counter()
+    lib = native.get_lib()
+    rec = {"phase": "native_decode", "compiler": native.compiler_version(cxx).splitlines()[0],
+           "built": not cached, "build_s": time.perf_counter() - t0, "cpu_count": os.cpu_count()}
+    tmp = tempfile.mkdtemp(prefix="avr_native_")
+    try:
+        # every layout, at the flagship's RAF window (1600 samples, stride 3)
+        rng = np.random.default_rng(0)
+        layouts = [(f, 1, False, False) for f in wav_lib.SAMPLE_FORMATS] + [
+            ("pcm16", 2, False, False), ("float32", 2, False, False), ("pcm32", 2, False, False),
+            ("float64", 3, False, False), ("pcm24", 1, True, False), ("float32", 2, True, False),
+            ("pcm16", 1, False, True), ("pcm8", 2, True, True),
+        ]
+        formats = {}
+        for fmt, ch, ext, odd in layouts:
+            name = f"{fmt}-{ch}ch{'-ext' if ext else ''}{'-oddchunk' if odd else ''}"
+            p = os.path.join(tmp, f"{name}.wav")
+            x = rng.uniform(-0.95, 0.95, (6000, ch) if ch > 1 else 6000)
+            wav_lib.write_wav_as(p, x, 48000, fmt, extensible=ext,
+                                 chunks_before_data=[(b"LIST", b"abc")] if odd else ())
+            got = native.load_wav_batch([p], 1600, 3)
+            plain = loaders._decode_wav_plain([p], 1600, 3)
+            err = float(np.abs(got - plain).max())
+            if ch == 1:
+                check(np.array_equal(got, plain), f"native decode of {name} differs from numpy: {err}")
+            else:
+                ok = np.abs(got - plain) <= np.maximum(1e-6 * np.abs(plain), 2.0**-23)
+                check(bool(ok.all()), f"native downmix of {name}: max |err| {err}")
+            formats[name] = err
+        rec["formats_max_abs_err"] = formats
+
+        room = RoomSpec(speed=346.8, fs=16000, seq_len=1600)
+        t0 = time.perf_counter()
+        write_raf_dataset(os.path.join(tmp, "raf"), room, n=NATIVE_RAF_FILES, seed=0)
+        write_meshrir_dataset(os.path.join(tmp, "mesh"), room, n=NATIVE_MESHRIR_FILES, seed=0)
+        rec["write_s"] = time.perf_counter() - t0
+        wavs = sorted(glob.glob(os.path.join(tmp, "raf", "*", "*", "rir.wav")))
+        npys = sorted(glob.glob(os.path.join(tmp, "mesh", "*", "ir_*.npy")))
+        check(len(wavs) == NATIVE_RAF_FILES and len(npys) == NATIVE_MESHRIR_FILES, "timing sets")
+        down = 48000 // room.fs
+        start = int(9100 / down)
+        native.reset_counts()
+        for name, paths, nat, plain in (
+            ("raf_wav", wavs, lambda: native.load_wav_batch(wavs, room.seq_len, down),
+             lambda: loaders._decode_wav_plain(wavs, room.seq_len, down)),
+            ("meshrir_npy", npys, lambda: native.load_npy_batch(npys, room.seq_len, down, start),
+             lambda: loaders._decode_npy_plain(npys, room.seq_len, down, start)),
+        ):
+            ms = {"native": [], "plain": []}
+            for _ in range(DECODE_REPEATS):
+                t0 = time.perf_counter()
+                got = nat()
+                ms["native"].append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                ref = plain()
+                ms["plain"].append((time.perf_counter() - t0) * 1e3)
+                check(np.array_equal(got, ref), f"{name}: native decode differs from numpy")
+            med = {k: statistics.median(v) for k, v in ms.items()}
+            rec[name] = {
+                "files": len(paths), "bytes": sum(os.path.getsize(p) for p in paths),
+                "native_ms": med["native"], "plain_ms": med["plain"], "runs_ms": ms,
+                "native_files_per_s": len(paths) / med["native"] * 1e3,
+                "plain_files_per_s": len(paths) / med["plain"] * 1e3,
+                "plain_over_native": med["plain"] / med["native"],
+            }
+        want = {"calls": 2 * DECODE_REPEATS, "files": DECODE_REPEATS * (len(wavs) + len(npys)), "rejected": 0}
+        check(native.COUNTS == want, f"decoder counts {native.COUNTS} != {want}")
+
+        # the error path: file 2 of 5 is missing
+        paths = wavs[:5]
+        paths[2] = os.path.join(tmp, "missing.wav")
+        arr = (ctypes.c_char_p * 5)(*[os.fsencode(p) for p in paths])
+        out = np.empty((5, 16), np.float32)
+        rc = lib.avr_load_wav_batch(arr, 5, out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), 16, 1)
+        check(rc == -3, f"missing file 2 of 5: return code {rc}")
+        native.reset_counts()
+        try:
+            native.load_wav_batch(paths, 16)
+            check(False, "a batch with a missing file decoded")
+        except native.Rejected as e:
+            check(e.path == paths[2], f"rejected {e.path}, not the missing file")
+        check(native.COUNTS == {"calls": 1, "files": 0, "rejected": 1}, f"decoder counts {native.COUNTS}")
+        rec["missing_file_rc"] = rc
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    results["native_decode"] = rec
+    emit(rec)
+
+
+def phase_runner_flagship(torch, dev, results) -> None:
+    """The flagship RAF recipe (``flagship_config()`` at full width) through
+    the runner on port-written RAF data decoded by the native decoder:
+    FLAGSHIP_RAF_FILES samples (64 train, 16 test), loaded by
+    ``AVRRunner(cfg, d)``; decoded files and rejected batches counted, and
+    the loaded splits held bit-equal to a load through the plain decode.
+    Then RUNNER_ITERATIONS iterations with checkpoints and validations
+    every 2 (5 + 5 encode launches per iteration, 5 + 0 per validation
+    batch, no scatter), params moved, bit-equal resume on the card, and
+    ``python -m avr_torch render`` from the checkpoint with ``rot_tx``. Only
+    the schedule and the log directory of the config are overridden."""
+    import copy
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from avr_torch import native
+    from avr_torch.data import loaders
+    from avr_torch.data.synthetic import RoomSpec, write_raf_dataset
+    from avr_torch.flagship import flagship_config
+    from avr_torch.train import runner as runner_lib
+    from avr_torch.train.state import named_leaves
+
+    cfg = flagship_config()
+    rc, tc, T = cfg.render, cfg.train, cfg.model.signal_output_dim
+    tmp = tempfile.mkdtemp(prefix="avr_runner_flagship_")
+    try:
+        d = os.path.join(tmp, "data")
+        write_raf_dataset(d, RoomSpec(speed=rc.speed, fs=rc.fs, seq_len=T), n=FLAGSHIP_RAF_FILES, seed=0)
+        tc.total_iterations, tc.save_freq, tc.val_freq, tc.log_freq = RUNNER_ITERATIONS, 2, 2, 1
+        cfg.path.logdir = os.path.join(tmp, "logs")
+        native.reset_counts()
+        t0 = time.perf_counter()
+        runner = runner_lib.AVRRunner(cfg, d, device=dev)
+        setup_s = time.perf_counter() - t0
+        decoded = dict(native.COUNTS)
+        check(decoded == {"calls": 2, "files": FLAGSHIP_RAF_FILES, "rejected": 0}, f"decoder counts {decoded}")
+        n_train, n_test = len(runner.train_data), len(runner.test_data)
+        check((n_train, n_test) == (64, 16), f"RAF splits {n_train} / {n_test}")
+
+        # the same splits through the plain decode
+        batched = loaders._batched_wav
+        loaders._batched_wav = loaders._decode_wav_plain
+        try:
+            plain = [loaders.load_dataset(d, "RAF", eval=e, seq_len=T, fs=rc.fs) for e in (False, True)]
+        finally:
+            loaders._batched_wav = batched
+        for data, ref in zip((runner.train_data, runner.test_data), plain):
+            for f in ("wave", "pos_rx", "pos_tx", "rot_tx"):
+                a, b = getattr(data, f), getattr(ref, f)
+                check(a is not None and a.dtype == b.dtype and np.array_equal(a, b),
+                      f"{f} loaded through the native decoder differs from the plain decode")
+
+        before = {n: t.clone() for n, t in named_leaves(runner.state.params)}
+        train_s, launches, peak, vals, saves = instrumented_train(torch, dev, runner)
+        run = check_runner_run(runner, launches, vals, encodes=5)
+        unchanged = [n for n, t in named_leaves(runner.state.params) if torch.equal(t, before[n])]
+        check(not unchanged, f"params unchanged by the runner: {unchanged}")
+        del before
+
+        cfg2 = copy.deepcopy(cfg)
+        cfg2.train.load_ckpt = True
+        resumed = runner_lib.AVRRunner(cfg2, d, device=dev)
+        check(equal_states(torch, resumed.state, runner.state), "resumed state differs from the trained one")
+        t0 = time.perf_counter()
+        resumed.load_checkpoint()
+        torch.cuda.synchronize(dev)
+        restore_s = time.perf_counter() - t0
+        ckpt_bytes = os.path.getsize(os.path.join(runner.logdir, "ckpts", "4", runner_lib.CHECKPOINT_FILE))
+        render_launch, render_ms = check_render_cli(torch, dev, tmp, runner, resumed, 5, keys=("rot_tx",))
+        rec = {
+            "phase": "runner_flagship", **run, "decoder": decoded, "setup_s": setup_s, "train_s": train_s,
+            "checkpoint_bytes": ckpt_bytes, "save_s": saves, "restore_s": restore_s,
+            "render_ms_per_batch": render_ms, "render_launches": render_launch, "peak_mem_bytes": peak,
+            "train_flagship_steady_ms_per_step": results["flagship_steady_ms"],
+        }
+        rec["iteration_over_step"] = rec["steady_ms_per_iteration"] / results["flagship_steady_ms"]
+        del runner, resumed
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    results["runner_flagship"] = rec
     emit(rec)
 
 
@@ -1833,10 +2109,11 @@ def population_entry(results, key: str) -> dict:
         "hpo_cli_launches": results["hpo_cli"]["launches"][f"{key}_pop"],
         "ms": fp["kernel_ms"], "device_ms": fp["device_ms"], "k1_loop_ms": fp["k1_loop_ms"],
         "bound_ms": fp["bound_ms"], "bound_by": fp["bound_by"], "max_abs_err": fp["max_abs_err"],
-        "plain_ms": fp["plain_ms"], "bf16_ms": bf["kernel_ms"], "bf16_k1_loop_ms": bf["k1_loop_ms"],
+        "plain_ms": fp["plain_ms"], "library_ms": fp["library_ms"],
+        "bf16_ms": bf["kernel_ms"], "bf16_k1_loop_ms": bf["k1_loop_ms"],
         "bf16_max_abs_err": bf["max_abs_err"],
         "dir": {k: results["encode_population"]["dir"][f"{kind}_fp32"][k]
-                for k in ("kernel_ms", "device_ms", "k1_loop_ms", "bound_ms", "max_abs_err")},
+                for k in ("kernel_ms", "device_ms", "k1_loop_ms", "bound_ms", "library_ms", "max_abs_err")},
     }
 
 
@@ -1902,6 +2179,8 @@ def main() -> int:
     phase_runner_array(torch, dev, array_config(), results)
     phase_population_array(torch, dev, args.profile, results)
     phase_hpo_cli(torch, dev, results)
+    phase_native_decode(results)
+    phase_runner_flagship(torch, dev, results)
     torch.cuda.empty_cache()
     phase_parallel_array(torch, dev, smi, results)
     emit({"phase": "profiler_misses", **PROFILER_MISSES})
@@ -1922,11 +2201,11 @@ def main() -> int:
             "plain_ms": results[key]["plain_ms"], "bound_ms": results[key]["bound_ms"],
             "bound_by": results[key]["bound_by"], "library_ms": results[key]["library_ms"],
             "array": array_entry(results, key),
-            "runner_array": {
-                "launches": results["runner"]["launches"][key],
-                "launches_per_iteration": results["runner"]["launches_per_iteration"][key],
-                "launches_per_validation_batch": results["runner"]["launches_per_validation_batch"][key],
-            },
+            **{phase: {
+                "launches": results[rkey]["launches"][key],
+                "launches_per_iteration": results[rkey]["launches_per_iteration"][key],
+                "launches_per_validation_batch": results[rkey]["launches_per_validation_batch"][key],
+            } for phase, rkey in (("runner_array", "runner"), ("runner_flagship", "runner_flagship"))},
             **({"population": population_entry(results, key)} if key != "scatter" else {}),
             "parallel_array": {name: {"launches_per_rank_per_step": r["launches_per_rank_per_step"][key],
                                       "ranks": r["world"]} for name, r in results["parallel"].items()},

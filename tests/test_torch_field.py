@@ -58,6 +58,19 @@ def test_params_round_trip_and_names():
     assert "pos_pair" in own["enc"] and "pos" not in own["enc"]
 
 
+@pytest.mark.parametrize("dataset_type", ["RAF", "MeshRIR"])
+def test_sigma_feat_dim_and_first_layer_weight_match_jax(dataset_type):
+    mcfg = tiny_model_config(signal_output_dim=64, complex_variant=dataset_type == "RAF")
+    jfst, tfst = jfield.build_field(mcfg, dataset_type), tfield.build_field(mcfg, dataset_type)
+    assert tfst.sigma_feat_dim == jfst.sigma_feat_dim == (256 if dataset_type == "RAF" else 128)
+    jparams = jax.device_get(jfield.init(jax.random.PRNGKey(0), jfst))
+    tparams = params_from_jax(jparams, device="cpu")
+    for net in ("sigma_encoder", "sigma_decoder", "signal"):
+        got = tmlp.first_layer_weight(tparams[net])
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jmlp.first_layer_weight(jparams[net])))
+        assert got.shape[0] == getattr(tfst, net).n_input_dims
+
+
 @pytest.mark.parametrize("shape", [(6, 5, 24), (40, 24)])
 def test_matmul_cd_bf16_forward_and_backward(shape):
     rng = np.random.default_rng(1)

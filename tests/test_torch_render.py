@@ -67,6 +67,26 @@ def test_sample_distances_ray_points_and_normalize_match_jax():
     np.testing.assert_allclose(tn.numpy(), jn, rtol=1e-6, atol=1e-6)
 
 
+def test_denormalize_points_and_rotate_xy_match_jax():
+    """Elementwise float32 arithmetic in the same order as JAX's: within
+    1e-6 (rotate_xy's cos/sin come from two libraries: 1e-6 of scale)."""
+    rng = np.random.default_rng(6)
+    pts = rng.uniform(-1, 1, (4, 5, 3)).astype(np.float32)
+    lo, hi = np.float32([-12.0, -6.0, -3.0]), np.float32([12.0, 6.0, 9.0])
+    jd = np.asarray(jgeo.denormalize_points(jnp.asarray(pts), jnp.asarray(lo), jnp.asarray(hi)))
+    td = tgeo.denormalize_points(torch.from_numpy(pts), torch.from_numpy(lo), torch.from_numpy(hi))
+    np.testing.assert_allclose(td.numpy(), jd, rtol=1e-6, atol=1e-6)
+    rt = tgeo.normalize_points(td, torch.from_numpy(lo), torch.from_numpy(hi))
+    np.testing.assert_allclose(rt.numpy(), pts, rtol=0, atol=1e-6)
+    world = rng.uniform(-3, 3, (8, 3)).astype(np.float32)
+    center = rng.uniform(-1, 1, (8, 3)).astype(np.float32)
+    for angle in (0.0, np.pi / 2, 1.234, -2.5):
+        jr = np.asarray(jgeo.rotate_xy(jnp.asarray(world), jnp.asarray(center), jnp.float32(angle)))
+        tr = tgeo.rotate_xy(torch.from_numpy(world), torch.from_numpy(center), angle).numpy()
+        np.testing.assert_allclose(tr, jr, rtol=0, atol=1e-6 * np.abs(jr).max())
+        np.testing.assert_array_equal(tr[:, 2], world[:, 2])
+
+
 def test_ray_directions_grid_and_random_offset():
     ref = np.asarray(jgeo.ray_directions(6, 3))
     got = tgeo.ray_directions(6, 3, device="cpu").numpy()
