@@ -4,10 +4,15 @@ Port of ``avr_tpu/ops/hash_scatter.py:scatter_add_rows`` (:114), whose TPU
 implementation is the Pallas ``_tile_kernel`` (:872). The encode's own
 backward (``hashgrid_encode.encode_backward``) computes the table gradient
 of the training path without an update stream; this generic scatter and
-its plain version, which that backward's plain version uses, stay. The sort and tile
-schedule around that kernel exists only because the TPU has no atomics and
-is not ported; the Hopper kernel (``csrc/hash_scatter.cu``) makes one pass
-over the stream with fp32 atomics, as tinycudann did for the reference.
+its plain version, which that backward's plain version uses, stay. The sort
+and tile schedule around that kernel exists only because the TPU has no
+atomics and is not ported. The Hopper kernel (``csrc/hash_scatter.cu``)
+makes one pass over the stream in chunks of 2048 rows: it folds runs of
+equal adjacent indices in registers and across the warp; where the grid is
+more than one wave, it sums a chunk whose span of rows fits a shared-memory
+slab there and flushes one vector RED per touched row; every other folded
+run is one vector RED. ``kernel_layout`` reads those sizes from the built
+kernel.
 
 A CPU tensor goes to :func:`scatter_add_rows_reference` (``index_add_``);
 a CUDA tensor goes to the kernel, or the call raises.
@@ -49,18 +54,33 @@ def _lib():
     return fn
 
 
+def kernel_layout(F: int) -> dict:
+    """The built kernel's layout for feature width F on the current CUDA
+    device (builds the library): stream rows per block (``chunk_rows``),
+    rows of the shared-memory slab (``slab_rows``), and the blocks with the
+    slab the device holds at once (``resident_blocks``); a launch of more
+    blocks than that uses the slab."""
+    if F not in _FEATURE_WIDTHS:
+        raise ValueError(f"kernel_layout: feature width {F} not in {_FEATURE_WIDTHS}")
+    fn = _build.load("hash_scatter").avr_scatter_add_rows_layout
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)], ctypes.c_int
+    vals = (ctypes.c_longlong * 3)()
+    rc = fn(F, vals)
+    if rc != 0:
+        raise RuntimeError(f"kernel_layout: CUDA error {rc}")
+    return dict(zip(("chunk_rows", "slab_rows", "resident_blocks"), vals))
+
+
 def scatter_add_rows(idx: torch.Tensor, upd: torch.Tensor, n_rows: int) -> torch.Tensor:
     """Sum update rows into bins: out[r] = Σ_{i: idx[i]=r} upd[i].
 
-    idx: int32 [M]; upd: float32 [M, F], F ∈ {1, 2, 4}, contiguous.
-    Returns float32 [n_rows, F]. Rows whose index lies outside
-    [0, n_rows) are dropped on both paths (JAX's scatter drops those past
-    the end too). On the card the sum order changes from run to run
-    (atomics).
+    idx: int32 [M]; upd: float32 [M, F], F ∈ {1, 2, 4}, contiguous, rows
+    aligned to their width. Returns float32 [n_rows, F]. Rows whose index
+    lies outside [0, n_rows) are dropped on both paths (JAX's scatter drops
+    those past the end too). On the card the sum order changes from run to
+    run (atomics).
     """
-    if upd.device.type == "cpu" and idx.device.type == "cpu":
-        return scatter_add_rows_reference(idx, upd, n_rows)
-    if upd.device.type != "cuda" or idx.device != upd.device:
+    if idx.device != upd.device:
         raise ValueError(
             f"scatter_add_rows: idx on {idx.device} and upd on {upd.device}; "
             "both must be on the same CUDA device (or both on the CPU)"
@@ -80,6 +100,10 @@ def scatter_add_rows(idx: torch.Tensor, upd: torch.Tensor, n_rows: int) -> torch
         raise ValueError("scatter_add_rows: idx and upd must be contiguous")
     if upd.data_ptr() % (4 * F):
         raise ValueError("scatter_add_rows: upd rows must be aligned to their width")
+    if upd.device.type == "cpu":
+        return scatter_add_rows_reference(idx, upd, n_rows)
+    if upd.device.type != "cuda":
+        raise ValueError(f"scatter_add_rows: tensors on {upd.device}; need a CUDA device or the CPU")
     out = torch.zeros((n_rows, F), dtype=torch.float32, device=upd.device)
     stream = torch.cuda.current_stream(upd.device).cuda_stream
     rc = _lib()(idx.data_ptr(), upd.data_ptr(), out.data_ptr(), idx.shape[0], n_rows, F, stream)

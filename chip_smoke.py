@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the avr_torch port (NVIDIA H100).
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--kernel-a-earlier SOURCE]
 
 Builds the port's CUDA kernels from ``avr_torch/ops/csrc`` (nvcc, cached
 in ``build/avr_torch_kernels/``) and drives six paths of the port, each
@@ -51,8 +51,13 @@ Before each path it holds each kernel against its plain PyTorch version
 at that path's shapes and checks the card against the plain CPU path on a
 small config of the same field variant; after it, it shows that the path
 went through the encode forward and backward kernels (the generic scatter
-kernel is held and timed, but is off every path). Prints one JSON object
-per phase, the ``nvidia-smi`` name/power line, a ``kernels`` summary, and
+kernel is held and timed, but is off every path: ``kernel_a_scatter`` holds
+it on boundary streams in a grid of one wave and in one past it, F = 1, 2,
+4, and at the flagship and array streams prints its runs, its share of rows
+summed in shared memory, its global REDs and its time split into dense
+levels, hashed levels and zero fill; ``--kernel-a-earlier SOURCE`` times
+kernel A built from an earlier commit's source beside it). Prints one JSON
+object per phase, the ``nvidia-smi`` name/power line, a ``kernels`` summary, and
 as its last line ``{"ok": true, "device": {...}}``. Any failed check raises
 and the exit code is non-zero. Without a CUDA device it exits with 2 and
 prints no result.
@@ -242,64 +247,220 @@ def corner_updates(torch, he, levels, x, g):
     return idx, upd, mul
 
 
-def phase_scatter(torch, dev, static, x, results):
-    """The generic scatter kernel against index_add_ at the flagship pos_pair
-    stream: the corner indices of the flagship points (plain version). Off
-    the training path since the encode backward has its own kernel."""
+def boundary_streams(F: int, chunk_rows: int, slab_rows: int, chunks: int, seed: int = 0,
+                     one_row_rows: int = 0) -> dict:
+    """Streams that put kernel A's runs and spans on its lane (8 rows), warp
+    (256) and block (``chunk_rows``) boundaries and at its slab's capacity
+    (``slab_rows``), most of them ``chunks`` chunks long: name → (idx int32
+    [M], upd float32 [M, F], n_rows), numpy. The updates are small integers,
+    so every sum is exact in fp32 in any order. ``one_row`` holds one index
+    for ``one_row_rows`` rows (default: the chunks' length)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    C, S, n_rows = chunk_rows, slab_rows, 1 << 20
+    n = chunks * C
+    def in_slab(count):  # rows inside one slab's span, no two adjacent equal
+        return 1000 + np.cumsum(rng.integers(1, S, count)) % S
+
+    idx = {"one_row": np.full(one_row_rows or n, 12_345)}
+    for r in (33, 1025, C + 1):  # runs across lanes, warps, blocks
+        idx[f"runs_{r}"] = np.repeat(in_slab(n // r + 2), r)[: n + 7]
+    for name, span in (("span_slab", S), ("span_slab_plus_1", S + 1)):
+        ids = 1000 + rng.integers(0, span, n)
+        ids[::C], ids[C - 1 :: C] = 1000, 1000 + span - 1  # every chunk spans both ends
+        idx[name] = ids
+    # C distinct rows per chunk, spread past the slab: nothing to fold
+    idx["distinct_chunk"] = (rng.integers(0, n_rows) + 7919 * np.arange(n)) % n_rows
+    # rows out of [0, n_rows) inside runs and at their ends
+    ids = np.repeat(in_slab(n // 40 + 2), 40)[: n + 3]
+    ids[5::40], ids[39::40], ids[20::97] = -1, n_rows, n_rows + 5
+    idx["out_of_range"] = ids
+    idx["ragged"] = rng.integers(0, 5000, n + 5)  # M not a multiple of the chunk
+    idx["m_31"] = rng.integers(0, 64, 31)
+    idx["m_7"] = np.full(7, 3)
+    return {
+        name: (ids.astype(np.int32), rng.integers(-8, 9, (ids.shape[0], F)).astype(np.float32), n_rows)
+        for name, ids in idx.items()
+    }
+
+
+def scatter_counts(torch, lay: dict, idx, n_rows: int) -> dict:
+    """What kernel A does with a stream, computed from the stream with torch
+    by the kernel's rule (csrc/hash_scatter.cu) and its layout ``lay``
+    (``hash_scatter.kernel_layout``): the runs, 1 + Σ[idx[i] ≠ idx[i−1]];
+    whether the launch may use the slab (more chunks than resident blocks);
+    per chunk, the slab if it may and the span of the chunk's in-range rows
+    fits, else L2; the share of the stream's rows summed in shared memory;
+    and the global REDs the design issues: one per touched row of a slab
+    chunk, one per run and warp (256 rows) of the rest. ``row_reds`` counts
+    one RED per in-range row, what a kernel that neither folds nor
+    privatises issues."""
+    C, W, M = lay["chunk_rows"], 256, idx.shape[0]
+    use_slab = -(-M // C) > lay["resident_blocks"]
+    valid = (idx >= 0) & (idx < n_rows)
+    keys = torch.where(valid, idx, -1)
+    keys = torch.cat([keys, keys.new_full(((-M) % C,), -1)]).view(-1, C)
+    hi = keys.max(1).values
+    lo = torch.where(keys >= 0, keys, torch.iinfo(torch.int32).max).min(1).values
+    live = hi >= 0
+    slab = live & (hi.long() - lo.long() + 1 <= lay["slab_rows"]) & use_slab
+    direct = live & ~slab
+    srt = keys.sort(1).values
+    distinct = (srt[:, :1] >= 0).sum(1) + ((srt[:, 1:] != srt[:, :-1]) & (srt[:, 1:] >= 0)).sum(1)
+    w = keys.view(-1, W)
+    warp_runs = ((w[:, :1] >= 0).sum(1) + ((w[:, 1:] != w[:, :-1]) & (w[:, 1:] >= 0)).sum(1)).view(-1, C // W).sum(1)
+    rows = torch.full((keys.shape[0],), C, device=idx.device)
+    rows[-1] = M - C * (keys.shape[0] - 1)
+    del srt, w, keys
+    return {
+        "runs": 1 + int((idx[1:] != idx[:-1]).sum()), "in_range_rows": int(valid.sum()),
+        "use_slab": use_slab, "chunks": {"slab": int(slab.sum()), "l2": int(direct.sum())},
+        "smem_row_share": float(rows[slab].sum()) / M,
+        "reds": int(distinct[slab].sum() + warp_runs[direct].sum()),
+        "row_reds": int(valid.sum()),
+    }
+
+
+def time_kernel_a(torch, hs, idx, upd, n_rows: int, iters: int, earlier=None) -> dict:
+    """Kernel A, its library route (``zero_`` and ``index_add_`` into an
+    [n_rows, F] buffer) and, where given, an earlier build of kernel A
+    (``earlier_kernel_a``), each timed twice with the same iterations in
+    the order kernel, library, earlier, earlier, library, kernel: the mean
+    of each pair."""
+    buf = torch.zeros((n_rows, upd.shape[1]), device=upd.device)
+
+    def library():
+        buf.zero_()
+        buf.index_add_(0, idx, upd)
+
+    fns = {"kernel_ms": lambda: hs.scatter_add_rows(idx, upd, n_rows), "library_ms": library}
+    if earlier is not None:
+        fns["earlier_kernel_ms"] = lambda: earlier(idx, upd, n_rows)
+    ms = dict.fromkeys(fns, 0.0)
+    for key in [*fns, *reversed(fns)]:
+        ms[key] += time_ms(fns[key], iters=iters) / 2
+    return ms
+
+
+def earlier_kernel_a(torch, source: str):
+    """Kernel A built from another source with the same C entry
+    (``avr_scatter_add_rows``; an earlier commit's ``hash_scatter.cu``), to
+    time beside the repo's: a function (idx, upd, n_rows) → out that zeroes
+    the output and launches as the wrapper does."""
+    import ctypes
+    import hashlib
+
+    from avr_torch.ops import _build
+
+    text = open(source, "rb").read()
+    lib = _build.BUILD_DIR / f"libearlier_hash_scatter-{hashlib.sha256(text).hexdigest()[:16]}.so"
+    if not lib.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib), source],
+                       check=True, capture_output=True, text=True)
+    fn = ctypes.CDLL(str(lib)).avr_scatter_add_rows
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(idx, upd, n_rows):
+        out = torch.zeros((n_rows, upd.shape[1]), device=upd.device)
+        rc = fn(idx.data_ptr(), upd.data_ptr(), out.data_ptr(), idx.shape[0], n_rows, upd.shape[1],
+                torch.cuda.current_stream(upd.device).cuda_stream)
+        check(rc == 0, f"earlier kernel A from {source}: CUDA error {rc}")
+        return out
+
+    return run
+
+
+def explain_kernel_a(torch, dev, hs, idx, upd, n_rows: int, m_dense: int, iters: int) -> dict:
+    """Kernel A at a level-major stream: the time and counts
+    (``scatter_counts``) of the whole stream, of its dense levels (the first
+    m_dense rows) and of its hashed levels (every part's launch zeroes the
+    whole output), and the zero fill alone."""
+    F = upd.shape[1]
+    lay = hs.kernel_layout(F)
+    parts = {"all": slice(0, idx.shape[0]), "dense_levels": slice(0, m_dense),
+             "hashed_levels": slice(m_dense, idx.shape[0])}
+    rec = {"zero_fill_ms": time_ms(lambda: torch.zeros((n_rows, F), device=dev), iters=iters)}
+    for part, s in parts.items():
+        i_s, u_s = idx[s], upd[s]
+        rec[part] = {
+            "M": i_s.shape[0], "distinct_rows": int(torch.unique(i_s).numel()),
+            "kernel_ms": time_ms(lambda: hs.scatter_add_rows(i_s, u_s, n_rows), iters=iters),
+            **scatter_counts(torch, lay, i_s, n_rows),
+        }
+    return rec
+
+
+def hold_kernel_a(torch, hs, idx, upd, n_rows: int, what: str) -> dict:
+    """Kernel A against its plain version: max|err| within 1e-5 of the
+    largest |sum|."""
+    ref = hs.scatter_add_rows_reference(idx, upd, n_rows)
+    got = hs.scatter_add_rows(idx, upd, n_rows)
+    torch.cuda.synchronize()
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    check(err <= 1e-5 * scale, f"kernel A {what}: max|err| {err} > 1e-5 × {scale}")
+    return {"max_abs_err": err, "scale": scale}
+
+
+def phase_scatter(torch, dev, static, x, results, earlier=None):
+    """Kernel A, the generic scatter, against its plain version and
+    ``index_add_``: first on the boundary streams (``boundary_streams``:
+    integer updates, so every sum is exact), each whole and shifted by a row
+    (scalar loads), F = 1, 2, 4, at two lengths: 5 chunks (one wave: every
+    run to L2) and one chunk more than the card holds at once (the slab
+    where a chunk's span fits); then at the flagship pos_pair stream (the
+    corner indices of the flagship points, plain version), F = 4, 2, 1, and
+    that stream permuted (no runs, full spans). Off the training path since
+    the encode backward has its own kernel. ``earlier``
+    (``earlier_kernel_a``) is timed beside the kernel."""
     from avr_torch.ops import hash_scatter as hs
     from avr_torch.ops import hashgrid_encode as he
+
+    out = {"phase": "kernel_a_scatter", "boundary": {}}
+    for F in (1, 2, 4):
+        lay = hs.kernel_layout(F)
+        out[f"layout_F{F}"] = lay
+        for size, chunks, one_row in (("wave", 5, 1 << 20), ("queued", lay["resident_blocks"] + 1, 0)):
+            streams = boundary_streams(F, lay["chunk_rows"], lay["slab_rows"], chunks, seed=F, one_row_rows=one_row)
+            for name, (i_np, u_np, n_rows) in streams.items():
+                i_t, u_t = torch.from_numpy(i_np).to(dev), torch.from_numpy(u_np).to(dev)
+                errs = [hold_kernel_a(torch, hs, i_t, u_t, n_rows, f"{name} ({size}) F={F}")["max_abs_err"]]
+                if i_t.shape[0] > 1:
+                    errs.append(hold_kernel_a(torch, hs, i_t[1:], u_t[1:], n_rows,
+                                              f"{name}[1:] ({size}) F={F}")["max_abs_err"])
+                out["boundary"][f"{name}_{size}_F{F}"] = {
+                    "M": i_t.shape[0], "max_abs_err": max(errs), **scatter_counts(torch, lay, i_t, n_rows),
+                }
 
     idx, _ = he.corners_reference(static.levels, x)
     n_rows, M = static.padded_entries, idx.shape[0]
     g = torch.Generator(device=dev).manual_seed(1)
-    out = {"phase": "kernel_a_scatter", "M": M, "n_rows": n_rows}
-    for F in (4, 2):
+    out.update({"M": M, "n_rows": n_rows})
+    for F in (4, 2, 1):
         upd = torch.randn((M, F), generator=g, device=dev)
-        ref = hs.scatter_add_rows_reference(idx, upd, n_rows)
-        got = hs.scatter_add_rows(idx, upd, n_rows)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        scale = float(ref.abs().max())
-        check(err <= 1e-5 * scale, f"kernel A F={F}: max|err| {err} > 1e-5 × {scale}")
-        buf = torch.zeros((n_rows, F), device=dev)
-
-        def library():
-            buf.zero_()
-            buf.index_add_(0, idx, upd)
-
+        rec = hold_kernel_a(torch, hs, idx, upd, n_rows, f"flagship F={F}")
         b_ms, b_by = bound(M * 4 + M * F * 4 + n_rows * F * 4, M * F)
-        rec = {
-            "max_abs_err": err, "scale": scale,
-            "kernel_ms": time_ms(lambda: hs.scatter_add_rows(idx, upd, n_rows)),
+        rec.update({
+            **time_kernel_a(torch, hs, idx, upd, n_rows, iters=20, earlier=earlier),
             "plain_ms": time_ms(lambda: hs.scatter_add_rows_reference(idx, upd, n_rows)),
-            "library_ms": time_ms(library),
             "bound_ms": b_ms, "bound_by": b_by,
-        }
+        })
         out[f"F{F}"] = rec
         if F == 4:
             results["scatter"] = rec
-            # Contention: the leading dense levels put m_dense updates on a few
-            # thousand rows; time them apart from the hashed levels' updates.
-            # Both launches zero the same n_rows-row output.
             m_dense = x.shape[0] * sum(lv.K for lv in static.levels[: static.hashed.index(True)])
-            parts = {"dense_levels": slice(0, m_dense), "hashed_levels": slice(m_dense, M)}
-            for name, s in parts.items():
-                i_s, u_s = idx[s], upd[s]
-                rec[name] = {
-                    "M": i_s.shape[0], "distinct_rows": int(torch.unique(i_s).numel()),
-                    "kernel_ms": time_ms(lambda: hs.scatter_add_rows(i_s, u_s, n_rows)),
-                }
-            rec["zero_fill_ms"] = time_ms(lambda: torch.zeros((n_rows, F), device=dev))
-        del upd, ref, got, buf
-    # Rows indexed outside [0, n_rows) are dropped on both sides.
-    bad = idx[:4096].clone()
-    bad[::7], bad[3::11] = n_rows, -1
-    u = torch.randn((bad.shape[0], 4), generator=g, device=dev)
-    ref = hs.scatter_add_rows_reference(bad, u, n_rows)
-    err = float((hs.scatter_add_rows(bad, u, n_rows) - ref).abs().max())
-    scale = float(ref.abs().max())
-    check(err <= 1e-5 * scale, f"kernel A out-of-range rows: max|err| {err} > 1e-5 × {scale}")
-    out["out_of_range"] = {"max_abs_err": err, "scale": scale}
+            rec.update(explain_kernel_a(torch, dev, hs, idx, upd, n_rows, m_dense, iters=20))
+            perm = torch.randperm(M, generator=g, device=dev)
+            i_p, u_p = idx[perm].contiguous(), upd[perm].contiguous()
+            rec["permuted"] = {
+                **hold_kernel_a(torch, hs, i_p, u_p, n_rows, "flagship permuted"),
+                **time_kernel_a(torch, hs, i_p, u_p, n_rows, iters=20, earlier=earlier),
+                "counts": scatter_counts(torch, hs.kernel_layout(F), i_p, n_rows),
+            }
+            del perm, i_p, u_p
+        del upd
     emit(out)
 
 
@@ -489,7 +650,7 @@ def phase_encode_bwd(torch, dev, cfg, static, x, results):
     emit(out)
 
 
-def phase_encode_array(torch, dev, fst, x, view, results):
+def phase_encode_array(torch, dev, fst, x, view, results, earlier=None):
     """The encode pair against its plain versions at the array step's two
     large streams: ``pos`` (bs·R·S ray points, F = 2, in the bf16 rule the
     step runs and in fp32) and ``dir`` (the R view directions through the
@@ -497,7 +658,8 @@ def phase_encode_array(torch, dev, fst, x, view, results):
     scale and bf16 bit-equal; backward within 1e-5 of scale. The backward's
     library route is ``index_add_`` of the fp32 corner update stream (the
     stream itself not timed); the generic scatter kernel is held and timed
-    on the same stream."""
+    on the same stream with the same iterations, ``earlier``
+    (``earlier_kernel_a``) beside it."""
     from avr_torch.ops import hash_scatter as hs
     from avr_torch.ops import hashgrid_encode as he
 
@@ -557,27 +719,23 @@ def phase_encode_array(torch, dev, fst, x, view, results):
         # the fp32 update stream: index_add_ (the library route) and kernel A
         idx, upd, mul = corner_updates(torch, he, levels, xs, g)
         mul()
-        buf = torch.zeros((n_rows, F), device=dev)
-
-        def library():
-            buf.zero_()
-            buf.index_add_(0, idx, upd)
-
-        lib_ms = time_ms(library, iters=5)
+        iters = 5 if name == "pos" else 20
+        timed = time_kernel_a(torch, hs, idx, upd, n_rows, iters=iters, earlier=earlier)
         for mode in modes:
-            rec[f"backward_{mode}"]["library_ms"] = lib_ms
+            rec[f"backward_{mode}"]["library_ms"] = timed["library_ms"]
         got = hs.scatter_add_rows(idx, upd, n_rows)
         torch.cuda.synchronize()
         scale, err = float(ref_fp32.abs().max()), float((got - ref_fp32).abs().max())
         check(err <= 1e-5 * scale, f"kernel A at the {name} stream: max|err| {err} > 1e-5 × {scale}")
         a_ms, a_by = bound(M * 4 + M * F * 4 + n_rows * F * 4, M * F)
+        m_dense = N * sum(lv.K for lv in levels[: grid.hashed.index(True)])
         rec["kernel_a_scatter"] = {
-            "max_abs_err": err, "scale": scale,
-            "kernel_ms": time_ms(lambda: hs.scatter_add_rows(idx, upd, n_rows), iters=5),
+            "max_abs_err": err, "scale": scale, **timed,
             "plain_ms": time_ms(lambda: hs.scatter_add_rows_reference(idx, upd, n_rows), iters=3, warmup=1),
-            "library_ms": lib_ms, "bound_ms": a_ms, "bound_by": a_by,
+            "bound_ms": a_ms, "bound_by": a_by,
+            **explain_kernel_a(torch, dev, hs, idx, upd, n_rows, m_dense, iters=iters),
         }
-        del idx, upd, mul, buf, got, ref_fp32, table, g
+        del idx, upd, mul, got, ref_fp32, table, g
         out[name] = rec
     results["encode_array"] = {k: v for k, v in out.items() if k != "phase"}
     emit(out)
@@ -2083,7 +2241,13 @@ def array_entry(results, key: str) -> dict:
     }
     for stream, rec in results["encode_array"].items():
         if key == "scatter":
-            entry[stream] = rec["kernel_a_scatter"]
+            a = rec["kernel_a_scatter"]
+            entry[stream] = {
+                **{k: a[k] for k in ("max_abs_err", "scale", "kernel_ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by", "zero_fill_ms")},
+                **{f"{part}_ms": a[part]["kernel_ms"] for part in ("dense_levels", "hashed_levels")},
+                **{k: a["all"][k] for k in ("runs", "reds", "row_reds", "smem_row_share")},
+            }
             continue
         kind = "forward" if key == "encode" else "backward"
         fp, bf = rec[f"{kind}_fp32"], rec.get(f"{kind}_bf16", {})
@@ -2120,6 +2284,8 @@ def population_entry(results, key: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", default=None, help="directory for a torch.profiler trace of one extra step")
+    ap.add_argument("--kernel-a-earlier", default=None, metavar="SOURCE",
+                    help="a hash_scatter.cu of an earlier commit: kernel A built from it is timed beside the repo's")
     args = ap.parse_args()
 
     import torch
@@ -2162,7 +2328,8 @@ def main() -> int:
     cfg = flagship_config()
     static = field.build_field(cfg.model, "RAF").encodings["pos"].grid
     x = flagship_points(torch, dev, cfg, seed=0)
-    phase_scatter(torch, dev, static, x, results)
+    earlier = earlier_kernel_a(torch, args.kernel_a_earlier) if args.kernel_a_earlier else None
+    phase_scatter(torch, dev, static, x, results, earlier)
     phase_encode(torch, dev, cfg, static, x, results)
     phase_encode_bwd(torch, dev, cfg, static, x, results)
     phase_small_parity(torch, dev)
@@ -2171,7 +2338,7 @@ def main() -> int:
     acfg = array_config()
     afst = field.build_field(acfg.model, acfg.path.dataset_type)
     ax, aview = step_points(torch, dev, acfg, seed=0, lo=0.5, hi=2.5)
-    phase_encode_array(torch, dev, afst, ax, aview, results)
+    phase_encode_array(torch, dev, afst, ax, aview, results, earlier)
     phase_encode_population(torch, dev, afst, ax, aview, results)
     del ax, aview
     phase_small_standard(torch, dev)

@@ -17,12 +17,22 @@ from avr_tpu.config import EncodingConfig
 from avr_tpu.models import hashgrid as jhg
 from avr_tpu.ops import hash_scatter as jhs
 
+from chip_smoke import boundary_streams
+
 from avr_torch.config import EncodingConfig as TEncodingConfig
 from avr_torch.models import hashgrid as thg
 from avr_torch.ops import hash_scatter as ths
 from avr_torch.ops import hashgrid_encode as tenc
 
 torch.set_num_threads(2)
+
+# Kernel A's layout as ``hash_scatter.kernel_layout`` reads it on the card:
+# stream rows per block, and the slab's 40 KB in rows of F floats.
+CHUNK_ROWS = 2048
+
+
+def _slab_rows(F):
+    return 40960 // (4 * F)
 
 INTERPS = ["trilinear", "simplex", "hybridc:2", "hybrid:1", "levels:tsts"]
 
@@ -45,16 +55,72 @@ def _rel(a, b):
     return np.abs(np.asarray(a) - np.asarray(b)).max() / (np.abs(np.asarray(b)).max() + 1e-30)
 
 
-@pytest.mark.parametrize("F", [1, 2, 4])
-def test_scatter_add_rows_matches_jax(F):
+def _scatter_stream(kind, F):
+    """(idx, upd, n_rows) of one stream kind at a small size: ``collide``
+    (every row collides), kernel A's boundary streams
+    (``chip_smoke.boundary_streams``, 3 chunks), and a small grid's
+    level-major corner stream as the encode gives it, in order and
+    permuted."""
     rng = np.random.default_rng(0)
-    M, E = 4096, 333  # ~12 updates per row: every row collides
-    idx = rng.integers(0, E, M).astype(np.int32)
-    upd = rng.normal(size=(M, F)).astype(np.float32)
-    ref = np.asarray(jhs.scatter_add_rows(jnp.asarray(idx), jnp.asarray(upd), E, impl="xla"))
+    if kind == "collide":
+        M, E = 4096, 333  # ~12 updates per row
+        return rng.integers(0, E, M).astype(np.int32), rng.normal(size=(M, F)).astype(np.float32), E
+    if kind.startswith("corners"):
+        _, tc = _cfgs("hybridc:2", n_levels=6)
+        ts = thg.build_static(tc)
+        x = torch.from_numpy(rng.uniform(0, 1, (512, 3)).astype(np.float32))
+        idx = tenc.corners_reference(ts.levels, x)[0].numpy()
+        if kind == "corners_permuted":
+            idx = rng.permutation(idx)
+        return idx, rng.normal(size=(idx.shape[0], F)).astype(np.float32), ts.padded_entries
+    return boundary_streams(F, CHUNK_ROWS, _slab_rows(F), 3, seed=F, one_row_rows=65_536)[kind]
+
+
+_BOUNDARY_KINDS = list(boundary_streams(1, CHUNK_ROWS, _slab_rows(1), 1, one_row_rows=8))
+_SCATTER_CASES = [pytest.param("collide", F, id=str(F)) for F in (1, 2, 4)] + [
+    pytest.param(kind, F, id=f"{kind}-F{F}")
+    for kind in _BOUNDARY_KINDS + ["corners", "corners_permuted"]
+    for F in (1, 2, 4)
+]
+
+
+@pytest.mark.parametrize("kind,F", _SCATTER_CASES)
+def test_scatter_add_rows_matches_jax(kind, F):
+    """The port's scatter (its plain version here) against JAX's XLA scatter
+    on each stream kind. JAX wraps negative indices where the port drops
+    them, so JAX gets the stream without them."""
+    idx, upd, E = _scatter_stream(kind, F)
+    keep = idx >= 0
+    ref = np.asarray(jhs.scatter_add_rows(jnp.asarray(idx[keep]), jnp.asarray(upd[keep]), E, impl="xla"))
     got = ths.scatter_add_rows(torch.from_numpy(idx), torch.from_numpy(upd), E).numpy()
     assert got.shape == (E, F) and got.dtype == np.float32
     assert _rel(got, ref) < 1e-5  # fp32 sums in another order
+
+
+@pytest.mark.parametrize("F", [1, 2, 4])
+def test_boundary_streams_reach_their_boundaries(F):
+    """Each boundary stream puts what its name says at kernel A's layout:
+    chunk spans of exactly the slab and one row over, C distinct rows per
+    chunk, runs of 33 / 1025 / C + 1, a ragged tail, rows out of range, and
+    integer updates (exact sums)."""
+    C, S = CHUNK_ROWS, _slab_rows(F)
+    streams = boundary_streams(F, C, S, 4, one_row_rows=4096)
+    for name, extra in (("span_slab", 0), ("span_slab_plus_1", 1)):
+        ch = streams[name][0].reshape(-1, C)
+        assert (ch.max(1) - ch.min(1) + 1 == S + extra).all()
+    ch = streams["distinct_chunk"][0].reshape(-1, C)
+    assert all(np.unique(c).size == C for c in ch) and (ch.max(1) - ch.min(1) >= S).all()
+    for n in (33, 1025, C + 1):
+        idx = streams[f"runs_{n}"][0]
+        starts = np.flatnonzero(np.r_[True, idx[1:] != idx[:-1]])
+        assert idx.size == 4 * C + 7 and (np.diff(starts) == n).all()
+    assert streams["ragged"][0].size % C and streams["m_31"][0].size == 31
+    assert streams["one_row"][0].size == 4096 and np.unique(streams["one_row"][0]).size == 1
+    n_rows = streams["out_of_range"][2]
+    bad = streams["out_of_range"][0]
+    assert (bad < 0).any() and (bad >= n_rows).any()
+    for idx, upd, _ in streams.values():
+        assert upd.shape == (idx.size, F) and (upd == np.round(upd)).all()
 
 
 def test_scatter_add_rows_drops_out_of_range_rows():
@@ -81,6 +147,39 @@ def test_scatter_add_rows_refuses_non_cpu_non_cuda():
     idx = torch.zeros(8, dtype=torch.int32, device="meta")
     upd = torch.zeros(8, 4, device="meta")
     with pytest.raises(ValueError):
+        ths.scatter_add_rows(idx, upd, 16)
+
+
+def _refused(case):
+    idx = torch.zeros(64, dtype=torch.int32)
+    upd = torch.zeros(64, 4)
+    if case == "F3":
+        return idx, torch.zeros(64, 3)
+    if case == "misaligned_rows":
+        return idx[:63], torch.zeros(64 * 4 + 1)[1:].view(64, 4)[:63]
+    if case == "int64_idx":
+        return idx.long(), upd
+    if case == "float64_upd":
+        return idx, upd.double()
+    if case == "shapes":
+        return idx[:32], upd
+    if case == "non_contiguous":
+        return idx, torch.zeros(4, 64).t()
+    if case == "device_mix":
+        return idx, upd.to("meta")
+    raise KeyError(case)
+
+
+@pytest.mark.parametrize(
+    "case,error",
+    [("F3", ValueError), ("misaligned_rows", ValueError), ("int64_idx", TypeError),
+     ("float64_upd", TypeError), ("shapes", ValueError), ("non_contiguous", ValueError),
+     ("device_mix", ValueError)],
+)
+def test_scatter_add_rows_refuses(case, error):
+    """What the kernel does not take is refused on every device, the CPU too."""
+    idx, upd = _refused(case)
+    with pytest.raises(error):
         ths.scatter_add_rows(idx, upd, 16)
 
 
