@@ -1,0 +1,6 @@
+"""``encode_roofline.train``, read in the population cells, which report
+``pop_trial_steps_per_s``."""
+
+from benchmark.harness import reader
+
+read = reader("encode_roofline.train")

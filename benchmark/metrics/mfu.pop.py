@@ -1,0 +1,6 @@
+"""``mfu.train``, read in the population cells, which report
+``pop_trial_steps_per_s``."""
+
+from benchmark.harness import reader
+
+read = reader("mfu.train")
