@@ -25,6 +25,7 @@ import ctypes
 import torch
 
 from avr_torch.ops import _build
+from avr_torch.utils import profiling
 
 _FEATURE_WIDTHS = (1, 2, 4)
 
@@ -109,8 +110,5 @@ def scatter_add_rows(idx: torch.Tensor, upd: torch.Tensor, n_rows: int) -> torch
     rc = _lib()(idx.data_ptr(), upd.data_ptr(), out.data_ptr(), idx.shape[0], n_rows, F, stream)
     if rc != 0:
         raise RuntimeError(f"scatter_add_rows: kernel launch failed with CUDA error {rc}")
-    scatter_add_rows.launches += 1
+    profiling.count("scatter.launches")
     return out
-
-
-scatter_add_rows.launches = 0

@@ -23,6 +23,10 @@ Population training (K trials in lockstep) encodes the same points through
 K tables ``[K, rows, F]``: ``encode_rows_pop`` and ``encode_backward_pop``
 launch the same two kernels once for all K, each thread computing its
 corners once and serving every table from them.
+
+Each launch adds one to a counter of ``utils.profiling`` (``encode.fwd_launches``,
+``encode.bwd_launches``, their ``_pop_`` forms, ``corners.launches``), and
+each forward launch its points (× K) to ``encode.points``.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch
 
 from avr_torch.ops import _build
 from avr_torch.ops.hash_scatter import scatter_add_rows_reference
+from avr_torch.utils import profiling
 
 # instant-ngp hash primes (Müller et al. 2022, Eq. 4)
 PRIMES = (1, 2654435761, 805459861)
@@ -313,11 +318,9 @@ def encode_rows(
     if table.dim() != 2:
         raise ValueError(f"encode_rows: need table [rows, F], got {tuple(table.shape)}")
     out = _encode("encode_rows", table[None], levels, x, round_bf16)[0]
-    encode_rows.launches += 1
+    profiling.count("encode.fwd_launches")
+    profiling.count("encode.points", x.shape[0])
     return out
-
-
-encode_rows.launches = 0
 
 
 def encode_rows_pop(
@@ -331,11 +334,9 @@ def encode_rows_pop(
     if tables.dim() != 3:
         raise ValueError(f"encode_rows_pop: need tables [K, rows, F], got {tuple(tables.shape)}")
     out = _encode("encode_rows_pop", tables, levels, x, round_bf16)
-    encode_rows_pop.launches += 1
+    profiling.count("encode.fwd_pop_launches")
+    profiling.count("encode.points", x.shape[0] * tables.shape[0])
     return out
-
-
-encode_rows_pop.launches = 0
 
 
 def encode_backward(
@@ -352,11 +353,8 @@ def encode_backward(
     if g.dim() != 3:
         raise ValueError(f"encode_backward: need g [N, L, F], got {tuple(g.shape)}")
     d_table = _encode_backward("encode_backward", g[None], levels, x, n_rows, round_bf16)[0]
-    encode_backward.launches += 1
+    profiling.count("encode.bwd_launches")
     return d_table
-
-
-encode_backward.launches = 0
 
 
 def encode_backward_pop(
@@ -371,11 +369,8 @@ def encode_backward_pop(
     if g.dim() != 4:
         raise ValueError(f"encode_backward_pop: need g [K, N, L, F], got {tuple(g.shape)}")
     d_tables = _encode_backward("encode_backward_pop", g, levels, x, n_rows, round_bf16)
-    encode_backward_pop.launches += 1
+    profiling.count("encode.bwd_pop_launches")
     return d_tables
-
-
-encode_backward_pop.launches = 0
 
 
 def corners(levels: Sequence[LevelSpec], x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -394,8 +389,5 @@ def corners(levels: Sequence[LevelSpec], x: torch.Tensor) -> Tuple[torch.Tensor,
         x.data_ptr(), _meta(levels), idx.data_ptr(), w.data_ptr(), N, len(levels), _stream(x.device),
     )
     _raise_on(rc, "corners")
-    corners.launches += 1
+    profiling.count("corners.launches")
     return idx, w
-
-
-corners.launches = 0

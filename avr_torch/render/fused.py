@@ -15,6 +15,13 @@ Same math as ``render/oracle.py``, without the [bs, R, S, F] spectrum:
      phase shift of the ray-reduced [bs, C, T] signal, accumulated into
      the [bs, F] spectrum.
 
+With the tracer of ``utils.profiling`` on, the render records the spans
+``render.context``, ``render.attenuation`` (pass 1 with the compositing
+weights) and ``render.signal`` (pass 2), and in it one ``render.chunk`` per
+signal chunk, opened inside the checkpointed function so that the
+backward's recompute records it again; the counter ``render.chunk_calls``
+counts those calls, recomputes included.
+
 With ``remat`` each chunk of either pass runs under
 ``torch.utils.checkpoint`` (the JAX ``remat=True``): its activations are
 recomputed in the backward, so live memory stays at one chunk's
@@ -40,6 +47,7 @@ from avr_torch import geometry
 from avr_torch.config import RenderConfig
 from avr_torch.models import field as field_lib
 from avr_torch.render.common import RenderConsts, compositing_weights, head_delay_mask
+from avr_torch.utils import profiling
 
 
 def _pick_chunk(n_samples: int, requested: int) -> int:
@@ -110,34 +118,36 @@ def render_fused(
         return pts, geometry.normalize_points(pts, xyz_min, xyz_max)
 
     # per-ray / per-batch signal context
-    h_ray, h_batch = field_lib.signal_context(
-        params, fstatic, dirs, tx_n, tx_view=direction_tx, ch_idx=ch_idx,
-        compute_dtype=compute_dtype,
-    )
-    # [(K,) bs, R, 1, W]
-    h_extra = h_ray.unsqueeze(-2).unsqueeze(-4) + h_batch.unsqueeze(-2).unsqueeze(-2)
+    with profiling.span("render.context"):
+        h_ray, h_batch = field_lib.signal_context(
+            params, fstatic, dirs, tx_n, tx_view=direction_tx, ch_idx=ch_idx,
+            compute_dtype=compute_dtype,
+        )
+        # [(K,) bs, R, 1, W]
+        h_extra = h_ray.unsqueeze(-2).unsqueeze(-4) + h_batch.unsqueeze(-2).unsqueeze(-2)
 
     # pass 1: attenuation (and, precomputed, every per-point feature)
-    if precompute:
-        pts_all, pts_n_all = normalized_points(d_vals)  # [bs, R, S, 3]
-        sigma_feat, attn, psig = field_lib.point_features(
-            params, fstatic, pts_n_all, tx=tx_q, ch_idx=ch_b, compute_dtype=compute_dtype
-        )
-        attn = attn[..., 0]  # [(K,) bs, R, S]
-        dist_all = torch.linalg.norm(position_tx[:, None, None, :] - pts_all, dim=-1)  # [bs, R, S]
-    else:
-        def attn_chunk(d_c):
-            _, a = field_lib.sigma_query(
-                params, fstatic, normalized_points(d_c)[1], tx=tx_q, ch_idx=ch_b,
-                compute_dtype=compute_dtype,
+    with profiling.span("render.attenuation"):
+        if precompute:
+            pts_all, pts_n_all = normalized_points(d_vals)  # [bs, R, S, 3]
+            sigma_feat, attn, psig = field_lib.point_features(
+                params, fstatic, pts_n_all, tx=tx_q, ch_idx=ch_b, compute_dtype=compute_dtype
             )
-            return a[..., 0]  # [(K,) bs, R, C]
+            attn = attn[..., 0]  # [(K,) bs, R, S]
+            dist_all = torch.linalg.norm(position_tx[:, None, None, :] - pts_all, dim=-1)  # [bs, R, S]
+        else:
+            def attn_chunk(d_c):
+                _, a = field_lib.sigma_query(
+                    params, fstatic, normalized_points(d_c)[1], tx=tx_q, ch_idx=ch_b,
+                    compute_dtype=compute_dtype,
+                )
+                return a[..., 0]  # [(K,) bs, R, C]
 
-        attn = torch.cat([run(attn_chunk, d_vals[s]) for s in chunks()], dim=-1)
-    lead = attn.shape[:-2]  # (bs,), or (K, bs) for K trials
-    w = compositing_weights(attn.reshape(-1, R, S), d_vals)  # [(K·)bs, R, S]
-    if ray_weights is not None:
-        w = w * ray_weights.to(w.dtype)[None, :, None]
+            attn = torch.cat([run(attn_chunk, d_vals[s]) for s in chunks()], dim=-1)
+        lead = attn.shape[:-2]  # (bs,), or (K, bs) for K trials
+        w = compositing_weights(attn.reshape(-1, R, S), d_vals)  # [(K·)bs, R, S]
+        if ray_weights is not None:
+            w = w * ray_weights.to(w.dtype)[None, :, None]
 
     # pass 2: signal tail + ray contraction + spectrum, chunk by chunk
     def spectrum(signal, dist_c, w_c, tail_c, pl_c, ph_re, ph_im):
@@ -150,34 +160,39 @@ def render_fused(
         return re.sum(dim=1), im.sum(dim=1)
 
     def precomputed_chunk(feat_c, psig_c, dist_c, *rest):
-        signal = field_lib.signal_tail_from_features(
-            params, fstatic, feat_c, psig_c, h_extra, ch_idx=ch_b, compute_dtype=compute_dtype
-        )  # [bs, R, C, T] fp32
-        return spectrum(signal, dist_c, *rest)
+        profiling.count("render.chunk_calls")
+        with profiling.span("render.chunk"):
+            signal = field_lib.signal_tail_from_features(
+                params, fstatic, feat_c, psig_c, h_extra, ch_idx=ch_b, compute_dtype=compute_dtype
+            )  # [bs, R, C, T] fp32
+            return spectrum(signal, dist_c, *rest)
 
     def streaming_chunk(d_c, *rest):
-        pts, pts_n = normalized_points(d_c)
-        feat_c, _ = field_lib.sigma_query(
-            params, fstatic, pts_n, tx=tx_q, ch_idx=ch_b, compute_dtype=compute_dtype
-        )
-        signal = field_lib.signal_from_parts(
-            params, fstatic, feat_c, pts_n, h_extra, ch_idx=ch_b, compute_dtype=compute_dtype
-        )
-        dist_c = torch.linalg.norm(position_tx[:, None, None, :] - pts, dim=-1)
-        return spectrum(signal, dist_c, *rest)
+        profiling.count("render.chunk_calls")
+        with profiling.span("render.chunk"):
+            pts, pts_n = normalized_points(d_c)
+            feat_c, _ = field_lib.sigma_query(
+                params, fstatic, pts_n, tx=tx_q, ch_idx=ch_b, compute_dtype=compute_dtype
+            )
+            signal = field_lib.signal_from_parts(
+                params, fstatic, feat_c, pts_n, h_extra, ch_idx=ch_b, compute_dtype=compute_dtype
+            )
+            dist_c = torch.linalg.norm(position_tx[:, None, None, :] - pts, dim=-1)
+            return spectrum(signal, dist_c, *rest)
 
-    acc_re = torch.zeros((w.shape[0], F), dtype=torch.float32, device=device)
-    acc_im = torch.zeros((w.shape[0], F), dtype=torch.float32, device=device)
-    for s in chunks():
-        rest = (
-            w[:, :, s], consts.tail_mask[s], consts.pathloss[s], consts.phase_re[s],
-            consts.phase_im[s],
-        )
-        if precompute:
-            psig_c = None if psig is None else psig[..., s, :]
-            re, im = run(precomputed_chunk, sigma_feat[..., s, :], psig_c, dist_all[:, :, s], *rest)
-        else:
-            re, im = run(streaming_chunk, d_vals[s], *rest)
-        acc_re = acc_re + re
-        acc_im = acc_im + im
-    return torch.stack([acc_re, acc_im], dim=-1).reshape(*lead, F, 2)
+    with profiling.span("render.signal"):
+        acc_re = torch.zeros((w.shape[0], F), dtype=torch.float32, device=device)
+        acc_im = torch.zeros((w.shape[0], F), dtype=torch.float32, device=device)
+        for s in chunks():
+            rest = (
+                w[:, :, s], consts.tail_mask[s], consts.pathloss[s], consts.phase_re[s],
+                consts.phase_im[s],
+            )
+            if precompute:
+                psig_c = None if psig is None else psig[..., s, :]
+                re, im = run(precomputed_chunk, sigma_feat[..., s, :], psig_c, dist_all[:, :, s], *rest)
+            else:
+                re, im = run(streaming_chunk, d_vals[s], *rest)
+            acc_re = acc_re + re
+            acc_im = acc_im + im
+        return torch.stack([acc_re, acc_im], dim=-1).reshape(*lead, F, 2)

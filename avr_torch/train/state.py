@@ -35,6 +35,12 @@ of the rays, one all-reduce assembles the global prediction, every rank
 runs the criterion on the whole batch, and the parameter gradients are
 summed over the world before the optimizer, which runs on every rank.
 
+With the tracer of ``utils.profiling`` on, a step records the span
+``step`` and in it, in order, ``render`` (the ``render`` closure, also a
+render request's one span), ``criterion`` (all K trials), ``backward``
+(the gradient, its zero fill and tree) and ``optimizer`` (the skip mask,
+clip and Adam).
+
 Params are the JAX package's tree of dicts and lists of tensors; names
 like ``enc.pos_pair`` and ``sigma_encoder.w.0`` address its leaves.
 """
@@ -54,6 +60,7 @@ from avr_torch.models import field as field_lib
 from avr_torch.parallel.mesh import MeshPlan, all_reduce_sum, assemble_prediction, broadcast
 from avr_torch.render.common import RenderConsts
 from avr_torch.render.fused import render_fused
+from avr_torch.utils import profiling
 
 
 def named_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
@@ -291,19 +298,20 @@ def make_train_step(
     default_hp: Dict[str, Dict[str, torch.Tensor]] = {}  # by device, for runtime steps without hp
 
     def render(params, batch: Dict[str, torch.Tensor], dirs: torch.Tensor) -> torch.Tensor:
-        ray_weights = None
-        if mesh_plan is not None:
-            batch_size = batch["pos_rx"].shape[0]
-            batch = mesh_plan.shard_batch(batch)
-            dirs, ray_weights = mesh_plan.shard_rays(dirs)
-        pred = render_fused(
-            params, fstatic, consts, rc,
-            batch["pos_rx"], batch["pos_tx"], direction_tx=batch.get("rot_tx"),
-            ch_idx=batch.get("ch_idx"), dirs=dirs, compute_dtype=compute_dtype,
-            shell_chunk=tc.shell_chunk, remat=bool(tc.remat), point_budget=tc.point_budget,
-            ray_weights=ray_weights,
-        )
-        return pred if mesh_plan is None else assemble_prediction(pred, mesh_plan, batch_size)
+        with profiling.span("render"):
+            ray_weights = None
+            if mesh_plan is not None:
+                batch_size = batch["pos_rx"].shape[0]
+                batch = mesh_plan.shard_batch(batch)
+                dirs, ray_weights = mesh_plan.shard_rays(dirs)
+            pred = render_fused(
+                params, fstatic, consts, rc,
+                batch["pos_rx"], batch["pos_tx"], direction_tx=batch.get("rot_tx"),
+                ch_idx=batch.get("ch_idx"), dirs=dirs, compute_dtype=compute_dtype,
+                shell_chunk=tc.shell_chunk, remat=bool(tc.remat), point_budget=tc.point_budget,
+                ray_weights=ray_weights,
+            )
+            return pred if mesh_plan is None else assemble_prediction(pred, mesh_plan, batch_size)
 
     def losses(pred: torch.Tensor, wave: torch.Tensor, hp) -> Tuple[torch.Tensor, LossBundle]:
         """(the loss to differentiate, the bundle): per trial for a population."""
@@ -322,32 +330,35 @@ def make_train_step(
         generator_or_dirs: Union[torch.Generator, torch.Tensor],
         hp: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Tuple[TrainState, LossBundle]:
-        device = batch["pos_rx"].device
-        if runtime_hp and hp is None:
-            if population:
-                raise ValueError("a population step needs the [K] hyper-parameter bundle hp")
-            hp = default_hp.setdefault(str(device), make_hparams(tc, device))
-        if "ch_idx" in batch:  # int32 from the sampler; indices are int64
-            batch = {**batch, "ch_idx": batch["ch_idx"].long()}
-        if isinstance(generator_or_dirs, torch.Tensor):
-            dirs = generator_or_dirs
-        else:
-            dirs = geometry.ray_directions(
-                rc.n_azi, rc.n_ele, generator=generator_or_dirs, device=device
-            )
-        params = tree_map(lambda t: t.detach().requires_grad_(True), state.params)
-        named = list(named_leaves(params))
-        pred = render(params, batch, dirs)
-        total, bundle = losses(pred, batch["wave"], hp if runtime_hp else None)
-        grads_flat = torch.autograd.grad(total, [t for _, t in named], allow_unused=True)
-        grads_flat = [torch.zeros_like(t) if d is None else d for (_, t), d in zip(named, grads_flat)]
-        if mesh_plan is not None:
-            grads_flat = all_reduce_sum(grads_flat)
-        grads = unflatten(params, {n: d for (n, _), d in zip(named, grads_flat)})
-        bundle = LossBundle(*(x.detach() for x in bundle))
-        with torch.no_grad():
-            skip = ~torch.isfinite(bundle.energy)
-            new_state = apply_optimizer(state, grads, tc, skip, hp if runtime_hp else None)
-        return new_state, bundle
+        with profiling.span("step"):
+            device = batch["pos_rx"].device
+            if runtime_hp and hp is None:
+                if population:
+                    raise ValueError("a population step needs the [K] hyper-parameter bundle hp")
+                hp = default_hp.setdefault(str(device), make_hparams(tc, device))
+            if "ch_idx" in batch:  # int32 from the sampler; indices are int64
+                batch = {**batch, "ch_idx": batch["ch_idx"].long()}
+            if isinstance(generator_or_dirs, torch.Tensor):
+                dirs = generator_or_dirs
+            else:
+                dirs = geometry.ray_directions(
+                    rc.n_azi, rc.n_ele, generator=generator_or_dirs, device=device
+                )
+            params = tree_map(lambda t: t.detach().requires_grad_(True), state.params)
+            named = list(named_leaves(params))
+            pred = render(params, batch, dirs)
+            with profiling.span("criterion"):
+                total, bundle = losses(pred, batch["wave"], hp if runtime_hp else None)
+            with profiling.span("backward"):  # with a mesh plan, the gradients' all-reduce too
+                grads_flat = torch.autograd.grad(total, [t for _, t in named], allow_unused=True)
+                grads_flat = [torch.zeros_like(t) if d is None else d for (_, t), d in zip(named, grads_flat)]
+                if mesh_plan is not None:
+                    grads_flat = all_reduce_sum(grads_flat)
+                grads = unflatten(params, {n: d for (n, _), d in zip(named, grads_flat)})
+            bundle = LossBundle(*(x.detach() for x in bundle))
+            with profiling.span("optimizer"), torch.no_grad():
+                skip = ~torch.isfinite(bundle.energy)
+                new_state = apply_optimizer(state, grads, tc, skip, hp if runtime_hp else None)
+            return new_state, bundle
 
     return step, render

@@ -1,25 +1,144 @@
-"""Profiling and memory observability (port of ``avr_tpu/utils/profiling.py``).
+"""Spans, counters and memory observability (port of ``avr_tpu/utils/profiling.py``).
 
+  * ``span(name)`` — a named interval of host time around a phase of the
+    work, recorded only while the tracer is on (``enable``/``disable``);
+  * ``count(name, n)`` — always-on integer counters in one registry;
+  * ``drain()`` — the spans recorded and the counters, both cleared;
   * ``device_memory_stats()`` — per-CUDA-device allocated, peak, reserved
     and total memory, from ``torch.cuda.memory_stats``;
   * ``log_memory(tag)`` — the reference's log_gpu_memory equivalent;
   * ``memory_snapshot(path)`` — JSON dump of the per-device stats and the
-    largest live CUDA tensors (the memory_check runner's snapshot);
-  * ``trace(logdir)`` — context manager around ``torch.profiler`` writing a
-    chrome trace of host and device activity;
-  * ``annotate(name)`` — named profiler span for phase attribution.
+    largest live CUDA tensors (the memory_check runner's snapshot).
+
+A span is kept on ``time.time_ns()``: the clock of ``torch.profiler``'s
+chrome trace, whose ``ts`` is (time_ns − ``baseTimeNanoseconds``) / 1000,
+so spans land on a device trace recorded without host operations. Off (the
+default) ``span`` checks one module flag and returns a shared no-op, so it
+stays on the hot path; a ``torch.profiler`` annotation costs tens of times
+more even with no profiler running. On, each span records its name,
+start and end, the thread's native id, its parent (the innermost span still
+open on the same thread) and its call: the outermost span open on any
+thread when it opened, itself when none was, so the spans that autograd's
+device threads open during a backward share the call of the step that runs
+it.
 """
 
 from __future__ import annotations
 
-import contextlib
 import gc
+import itertools
 import json
 import os
+import threading
 import time
-from typing import Dict, Optional
+from collections import defaultdict
+from typing import Dict, List, Optional, Tuple
 
 import torch
+
+_on = False
+_spans: List["_Span"] = []
+_ids = itertools.count()
+_local = threading.local()  # .stack: the spans open on this thread, innermost last; .tid
+_calls: List["_Span"] = []  # the outermost spans open, on any thread
+_counts: Dict[str, int] = defaultdict(int)
+
+
+def _forget_thread() -> None:
+    """In a forked child: its thread has another id and no span open."""
+    vars(_local).clear()
+
+
+os.register_at_fork(after_in_child=_forget_thread)
+
+
+class _Span:
+    __slots__ = ("name", "id", "start_ns", "end_ns", "tid", "parent", "call")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+            _local.tid = threading.get_native_id()  # a system call: once per thread
+        self.id = next(_ids)
+        self.tid = _local.tid
+        self.parent = stack[-1].id if stack else None
+        if stack:
+            self.call = stack[-1].call
+        elif _calls:
+            self.call = _calls[-1].call
+        else:
+            self.call = self.id
+            _calls.append(self)
+        stack.append(self)
+        _spans.append(self)
+        self.end_ns = None
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.end_ns = time.time_ns()
+        _local.stack.pop()
+        if _calls and _calls[-1] is self:
+            _calls.pop()
+        return False
+
+    def as_dict(self) -> dict:
+        return {k: getattr(self, k) for k in self.__slots__}
+
+
+class _Off:
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+def span(name: str):
+    """A context manager timing the block as span ``name`` while the tracer
+    is on; a shared no-op while it is off."""
+    return _Span(name) if _on else _OFF
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` (on or off)."""
+    _counts[name] += n
+
+
+def counters() -> Dict[str, int]:
+    """The counters as they stand, without clearing them."""
+    return dict(_counts)
+
+
+def enable() -> None:
+    global _on
+    _on = True
+
+
+def disable() -> None:
+    global _on
+    _on = False
+
+
+def drain() -> Tuple[List[dict], Dict[str, int]]:
+    """The spans recorded since the last drain, in order of their start,
+    each a dict (``name``, ``id``, ``start_ns``, ``end_ns``, ``tid``,
+    ``parent``, ``call``; ``end_ns`` None while open), and the counters;
+    both are cleared."""
+    spans = [s.as_dict() for s in _spans]
+    _spans.clear()
+    counts = dict(_counts)
+    _counts.clear()
+    return spans, counts
 
 
 def device_memory_stats() -> Dict[str, Dict[str, float]]:
@@ -76,27 +195,3 @@ def memory_snapshot(path: Optional[str] = None) -> Dict:
         with open(path, "w") as f:
             json.dump(snap, f, indent=2)
     return snap
-
-
-@contextlib.contextmanager
-def trace(logdir: str):
-    """Profile the block with ``torch.profiler`` (CPU, and CUDA where there
-    is a device) and write ``trace.json`` (chrome/Perfetto) and
-    ``kernels.txt`` (time by op) into ``logdir``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
-    os.makedirs(logdir, exist_ok=True)
-    with profile(activities=acts) as prof:
-        yield prof
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-    sort = "cuda_time_total" if torch.cuda.is_available() else "cpu_time_total"
-    with open(os.path.join(logdir, "kernels.txt"), "w") as f:
-        f.write(prof.key_averages().table(sort_by=sort, row_limit=40))
-
-
-def annotate(name: str):
-    """Named span inside a trace."""
-    return torch.profiler.record_function(name)

@@ -1093,28 +1093,32 @@ def phase_train_array(torch, dev, profile_dir, results):
                       predicted_launches=expected))
 
 
-def launch_counts():
-    """The wrappers' launch counts, by the keys of the ``kernels`` line;
-    ``*_pop`` are the K-trial wrappers of the same two encode kernels."""
-    from avr_torch.ops import hash_scatter as hs
-    from avr_torch.ops import hashgrid_encode as he
+# the keys of the ``kernels`` line → the wrappers' launch counters in
+# ``avr_torch.utils.profiling``; ``*_pop`` are the K-trial wrappers of the
+# same two encode kernels
+LAUNCH_COUNTERS = {"scatter": "scatter.launches", "encode": "encode.fwd_launches",
+                   "encode_bwd": "encode.bwd_launches", "encode_pop": "encode.fwd_pop_launches",
+                   "encode_bwd_pop": "encode.bwd_pop_launches"}
 
-    return {"scatter": hs.scatter_add_rows.launches, "encode": he.encode_rows.launches,
-            "encode_bwd": he.encode_backward.launches, "encode_pop": he.encode_rows_pop.launches,
-            "encode_bwd_pop": he.encode_backward_pop.launches}
+
+def launch_counts():
+    """The wrappers' launch counts, by the keys of the ``kernels`` line."""
+    from avr_torch.utils import profiling
+
+    now = profiling.counters()
+    return {k: now.get(name, 0) for k, name in LAUNCH_COUNTERS.items()}
 
 
 def counts(**nonzero) -> dict:
     """A launch-count dict with every key of ``launch_counts``, 0 unless given."""
-    return {**dict.fromkeys(("scatter", "encode", "encode_bwd", "encode_pop", "encode_bwd_pop"), 0), **nonzero}
+    return {**dict.fromkeys(LAUNCH_COUNTERS, 0), **nonzero}
 
 
 def reset_launch_counts() -> None:
-    from avr_torch.ops import hash_scatter as hs
-    from avr_torch.ops import hashgrid_encode as he
+    """Clears the registry's counters (and any span recorded)."""
+    from avr_torch.utils import profiling
 
-    hs.scatter_add_rows.launches = he.encode_rows.launches = he.encode_backward.launches = 0
-    he.encode_rows_pop.launches = he.encode_backward_pop.launches = 0
+    profiling.drain()
 
 
 def since(before: dict) -> dict:
