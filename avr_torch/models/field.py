@@ -299,10 +299,8 @@ def _sigma_branch(params, static, pos_enc, tx_pos_enc, compute_dtype):
         params["sigma_encoder"], [pos_enc.shape[-1], tx_pos_enc.shape[-1]]
     )
     h = mlp._matmul(pos_enc, w_pos, compute_dtype) + mlp._matmul(tx_pos_enc, w_tx, compute_dtype)
-    if static.sigma_encoder.use_bias:
-        h = h + mlp.per_trial(params["sigma_encoder"]["b"][0], h)
     sigma_feat = mlp.apply_tail(
-        params["sigma_encoder"], static.sigma_encoder, h, compute_dtype=compute_dtype
+        params["sigma_encoder"], static.sigma_encoder, h, compute_dtype=compute_dtype, add_first_bias=True
     )
     raw = mlp.apply(
         params["sigma_decoder"], static.sigma_decoder, torch.relu(sigma_feat),
@@ -469,38 +467,35 @@ def point_features(
 
 def signal_tail_from_features(
     params: Dict, static: FieldStatic, sigma_feat: torch.Tensor, psig_enc: Optional[torch.Tensor],
-    h_extra: torch.Tensor, ch_idx: Optional[torch.Tensor] = None, compute_dtype=None,
+    context: Tuple[torch.Tensor, torch.Tensor], ch_idx: Optional[torch.Tensor] = None, compute_dtype=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Signal network given precomputed per-point features (no gathers).
 
     The complex variant takes relu(sigma_feat) and psig_enc; the standard
-    one the raw sigma_feat, and ch_idx for "add" injection. h_extra is
-    ``signal_context``'s h_ray + h_batch, broadcastable against [..., W].
-    Returns ``mlp.apply_tail``'s pair (signal [..., signal_output_dim] before
-    the output layer's bias, that bias), or (signal, None) where the output
-    activation is not the identity: the signal is the pair's sum, as
-    ``ops.signal_contract`` adds it.
+    one the raw sigma_feat, and ch_idx for "add" injection. ``context`` is
+    ``signal_context``'s pair (h_ray [(K,) R, W], h_batch [(K,) B, W]) for
+    features [(K,) B, R, C, ...], added in the first layer without forming
+    their [(K,) B, R, 1, W] sum (``mlp.apply_parts``). Returns ``mlp.apply_tail``'s pair (signal
+    [..., signal_output_dim] before the output layer's bias, that bias), or
+    (signal, None) where the output activation is not the identity: the
+    signal is the pair's sum, as ``ops.signal_contract`` adds it.
     """
     slices = mlp.input_weight_slices(params["signal"], _signal_dims(static))
     if static.variant == "complex":
-        h = (
-            mlp._matmul(torch.relu(sigma_feat), slices[0], compute_dtype)
-            + mlp._matmul(psig_enc, slices[3], compute_dtype)
-            + h_extra
-        )
+        parts = [(torch.relu(sigma_feat), slices[0]), (psig_enc, slices[3])]
         ch_idx = None
     else:
-        h = mlp._matmul(sigma_feat, slices[0], compute_dtype) + h_extra
+        parts = [(sigma_feat, slices[0])]
         ch_idx = _if_add(static.sig_mode, ch_idx)
-    return mlp.apply_tail(
-        params["signal"], static.signal, h, ch_idx=ch_idx, compute_dtype=compute_dtype,
+    return mlp.apply_parts(
+        params["signal"], static.signal, parts, context, ch_idx=ch_idx, compute_dtype=compute_dtype,
         split_bias=True,
     )
 
 
 def signal_from_parts(
     params: Dict, static: FieldStatic, sigma_feat: torch.Tensor, pts: Optional[torch.Tensor],
-    h_extra: torch.Tensor, ch_idx: Optional[torch.Tensor] = None, compute_dtype=None,
+    context: Tuple[torch.Tensor, torch.Tensor], ch_idx: Optional[torch.Tensor] = None, compute_dtype=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Per-point signal given the factored first-layer context, for the
     streaming plan: as ``signal_tail_from_features``, with the complex
@@ -510,5 +505,5 @@ def signal_from_parts(
         _enc(params, static, "pos_sig", _to01(pts)) if static.variant == "complex" else None
     )
     return signal_tail_from_features(
-        params, static, sigma_feat, psig_enc, h_extra, ch_idx=ch_idx, compute_dtype=compute_dtype
+        params, static, sigma_feat, psig_enc, context, ch_idx=ch_idx, compute_dtype=compute_dtype
     )

@@ -10,7 +10,12 @@ added to the layer's pre-activation (the reference's "add" connection).
 
 Matmuls run on ``torch.matmul`` (cuBLAS on the card). With a bf16
 ``compute_dtype`` they take bf16 operands, accumulate in fp32 and return
-fp32 — in both directions (``_MatmulCD``).
+fp32 — in both directions (``_MatmulCD``). A ReLU network in bf16 compute
+(every shipped recipe) runs its hidden layers as ``ops.mlp_act``'s chain:
+the same matmuls, with each layer's bias, embedding (and the signal
+network's first-layer context), ReLU and bf16 cast in one kernel forward and
+the mask, cast and sums in one kernel backward on the card. Another
+activation, or fp32 compute, keeps the eager chain.
 
 Population training stacks K trials' params on a leading axis: weights
 [K, d_in, d_out], biases [K, d_out], embeddings [K, ch_num, n]. Inputs then
@@ -27,6 +32,8 @@ import torch
 import torch.nn.functional as Fn
 
 from avr_torch.device import resolve_device
+from avr_torch.ops import mlp_act
+from avr_torch.ops.mlp_act import mm_f32 as _mm_f32
 
 Params = Dict[str, list]
 
@@ -97,21 +104,6 @@ def init(generator: Optional[torch.Generator], static: MLPStatic, device="cuda")
     return params
 
 
-def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b for bf16 operands, 2-D or batched 3-D, with fp32 accumulation
-    and fp32 output.
-
-    On the card cuBLAS takes the bf16 operands and writes fp32
-    (``out_dtype``). The CPU has no such kernel: there the bf16 values are
-    widened first — each product of two bf16 values is exact in fp32, so
-    this is the same arithmetic.
-    """
-    mm = torch.mm if a.dim() == 2 else torch.bmm
-    if a.is_cuda:
-        return mm(a, b, out_dtype=torch.float32)
-    return mm(a.to(torch.float32), b.to(torch.float32))
-
-
 class _MatmulCD(torch.autograd.Function):
     """x @ w in ``compute_dtype`` with fp32 accumulation, both directions.
 
@@ -163,12 +155,67 @@ def rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table[idx] if table.dim() == 2 else table[:, idx]
 
 
+def _fused(static: MLPStatic, compute_dtype) -> bool:
+    """Whether the hidden layers run as ``ops.mlp_act``'s chain: a ReLU
+    network with hidden layers, in bf16 compute."""
+    return (
+        compute_dtype == torch.bfloat16 and static.n_hidden_layers > 0
+        and (static.activation or "").lower() == "relu"
+    )
+
+
+def _trials(params: Params) -> int:
+    w = params["w"][0]
+    return w.shape[0] if w.dim() == 3 else 0
+
+
+def _output(params: Params, static: MLPStatic, h: torch.Tensor, split_bias: bool):
+    """The output layer's bias and activation on its matmul h (``apply_tail``'s
+    return)."""
+    if split_bias and static.use_bias and (static.output_activation or "none").lower() in _IDENTITY:
+        return h, params["b"][-1]
+    if static.use_bias:
+        h = h + per_trial(params["b"][-1], h)
+    out = _activation(static.output_activation)(h)
+    return (out, None) if split_bias else out
+
+
+def _chain(params, static, first, lead, ch_idx, compute_dtype, split_bias, bias0=None, context=None):
+    """The network through ``mlp_act.hidden_chain`` from ``first`` (the first
+    layer's product, or its (x, w) parts) over rows with leading dims ``lead``
+    (without the trial axis)."""
+    K = _trials(params)
+    H = static.n_hidden_layers
+    inject = static.inject and ch_idx is not None
+    lay, ch = mlp_act.layout_of(lead, K, ch_idx if inject else None, context is not None)
+    rows = (K, -1) if K else (-1,)
+    if isinstance(first, torch.Tensor):
+        first = first.reshape(*rows, first.shape[-1])
+    else:
+        first = [(x.reshape(*rows, x.shape[-1]), w) for x, w in first]
+    out = mlp_act.hidden_chain(
+        first, params["w"][1:],
+        [bias0] + [params["b"][i] if static.use_bias else None for i in range(1, H)],
+        [params["emb"][i] if inject else None for i in range(H)], ch, context, lay, compute_dtype,
+    )
+    return _output(params, static, out.reshape(*((K,) if K else ()), *lead, out.shape[-1]), split_bias)
+
+
+def _lead(params: Params, x: torch.Tensor):
+    """x's leading dims without the trial axis."""
+    return x.shape[1:-1] if _trials(params) else x.shape[:-1]
+
+
 def apply(
     params: Params, static: MLPStatic, x: torch.Tensor, ch_idx: Optional[torch.Tensor] = None,
     compute_dtype=None,
 ) -> torch.Tensor:
     """Forward pass. x: [..., n_input_dims]; ch_idx: integer channels
     broadcastable against x's leading dims, or None."""
+    if _fused(static, compute_dtype):
+        bias0 = params["b"][0] if static.use_bias else None
+        return _chain(params, static, [(x, params["w"][0])], _lead(params, x), ch_idx, compute_dtype,
+                      False, bias0=bias0)
     h = _matmul(x, params["w"][0], compute_dtype)
     if static.use_bias:
         h = h + per_trial(params["b"][0], h)
@@ -177,9 +224,10 @@ def apply(
 
 def apply_tail(
     params: Params, static: MLPStatic, h: torch.Tensor, ch_idx: Optional[torch.Tensor] = None,
-    compute_dtype=None, split_bias: bool = False,
+    compute_dtype=None, split_bias: bool = False, add_first_bias: bool = False,
 ):
-    """Run the network given the first layer's pre-activation ``h``.
+    """Run the network given the first layer's pre-activation ``h`` (its
+    product before the first bias, with ``add_first_bias``).
 
     With ``split_bias`` returns (output, bias): where the output layer has a
     bias and the output activation is the identity, the output layer's matmul
@@ -187,22 +235,45 @@ def apply_tail(
     the caller can add it after a linear map of its own; otherwise the whole
     output and None.
     """
+    bias0 = params["b"][0] if add_first_bias and static.use_bias else None
+    if _fused(static, compute_dtype):
+        return _chain(params, static, h, _lead(params, h), ch_idx, compute_dtype, split_bias, bias0=bias0)
+    if bias0 is not None:
+        h = h + per_trial(bias0, h)
     act = _activation(static.activation)
-    out_act = _activation(static.output_activation)
     n_layers = len(static.layer_dims)
-    apart = split_bias and static.use_bias and (static.output_activation or "none").lower() in _IDENTITY
-    for layer in range(n_layers):
+    for layer in range(n_layers - 1):
         if layer > 0:
             h = _matmul(h, params["w"][layer], compute_dtype)
-            if apart and layer == n_layers - 1:
-                return h, params["b"][layer]
             if static.use_bias:
                 h = h + per_trial(params["b"][layer], h)
-        if layer < n_layers - 1:
-            if static.inject and ch_idx is not None:
-                h = h + rows(params["emb"][layer], ch_idx)
-            h = act(h)
-    return (out_act(h), None) if split_bias else out_act(h)
+        if static.inject and ch_idx is not None:
+            h = h + rows(params["emb"][layer], ch_idx)
+        h = act(h)
+    if n_layers == 1:  # h is the output layer's pre-activation, its bias in it
+        out = _activation(static.output_activation)(h)
+        return (out, None) if split_bias else out
+    return _output(params, static, _matmul(h, params["w"][-1], compute_dtype), split_bias)
+
+
+def apply_parts(
+    params: Params, static: MLPStatic, parts, context: Tuple[torch.Tensor, torch.Tensor],
+    ch_idx: Optional[torch.Tensor] = None, compute_dtype=None, split_bias: bool = False,
+):
+    """Run the network whose first layer is Σᵢ xᵢ @ wᵢ over input parts
+    (xᵢ [(K,) B, R, C, dᵢ], wᵢ rows of the first weight, ``input_weight_slices``)
+    plus the context h_ray [(K,) R, W] + h_batch [(K,) B, W] (the first bias
+    folded in); returns as ``apply_tail``. The eager chain adds the context
+    as one [(K,) B, R, 1, W] tensor."""
+    if _fused(static, compute_dtype):
+        return _chain(params, static, parts, _lead(params, parts[0][0]), ch_idx, compute_dtype, split_bias,
+                      context=context)
+    h = _matmul(parts[0][0], parts[0][1], compute_dtype)
+    for x, w in parts[1:]:
+        h = h + _matmul(x, w, compute_dtype)
+    h_ray, h_batch = context
+    h = h + (h_ray.unsqueeze(-2).unsqueeze(-4) + h_batch.unsqueeze(-2).unsqueeze(-2))
+    return apply_tail(params, static, h, ch_idx=ch_idx, compute_dtype=compute_dtype, split_bias=split_bias)
 
 
 def first_layer_weight(params: Params) -> torch.Tensor:

@@ -24,7 +24,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "avr_torch_kernels"
-SOURCES = ("hash_scatter", "hashgrid_encode", "hashgrid_encode_bwd", "signal_contract")
+SOURCES = ("hash_scatter", "hashgrid_encode", "hashgrid_encode_bwd", "signal_contract", "mlp_act")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

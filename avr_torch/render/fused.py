@@ -10,7 +10,9 @@ Same math as ``render/oracle.py``, without the [bs, R, S, F] spectrum:
      Then the compositing weights w = transmittance·α are formed.
   2. Signal pass over S/C shell chunks: the signal tail (from the stored
      features, or with the sigma branch recomputed per chunk in the
-     streaming plan) up to its last matmul, then ``ops.signal_contract``:
+     streaming plan) up to its last matmul, its first layer taking the
+     per-ray and per-batch context (``field.signal_context``) as they are,
+     never as one [(K,) bs, R, 1, W] tensor; then ``ops.signal_contract``:
      the last layer's bias, the causality masks and the ray contraction
      y[b,c,t] = Σ_r w·mask·signal in fp32, one kernel each way on the card;
      then the rFFT and fractional phase shift of the ray-reduced [bs, C, T]
@@ -121,12 +123,11 @@ def render_fused(
 
     # per-ray / per-batch signal context
     with profiling.span("render.context"):
-        h_ray, h_batch = field_lib.signal_context(
+        # h_ray [(K,) R, W], h_batch [(K,) bs, W]: added in the signal network's first layer
+        context = field_lib.signal_context(
             params, fstatic, dirs, tx_n, tx_view=direction_tx, ch_idx=ch_idx,
             compute_dtype=compute_dtype,
         )
-        # [(K,) bs, R, 1, W]
-        h_extra = h_ray.unsqueeze(-2).unsqueeze(-4) + h_batch.unsqueeze(-2).unsqueeze(-2)
 
     # pass 1: attenuation (and, precomputed, every per-point feature)
     with profiling.span("render.attenuation"):
@@ -164,7 +165,7 @@ def render_fused(
         profiling.count("render.chunk_calls")
         with profiling.span("render.chunk"):
             signal = field_lib.signal_tail_from_features(
-                params, fstatic, feat_c, psig_c, h_extra, ch_idx=ch_b, compute_dtype=compute_dtype
+                params, fstatic, feat_c, psig_c, context, ch_idx=ch_b, compute_dtype=compute_dtype
             )
             return spectrum(signal, dist_c, *rest)
 
@@ -176,7 +177,7 @@ def render_fused(
                 params, fstatic, pts_n, tx=tx_q, ch_idx=ch_b, compute_dtype=compute_dtype
             )
             signal = field_lib.signal_from_parts(
-                params, fstatic, feat_c, pts_n, h_extra, ch_idx=ch_b, compute_dtype=compute_dtype
+                params, fstatic, feat_c, pts_n, context, ch_idx=ch_b, compute_dtype=compute_dtype
             )
             dist_c = torch.linalg.norm(position_tx[:, None, None, :] - pts, dim=-1)
             return spectrum(signal, dist_c, *rest)

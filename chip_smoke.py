@@ -55,6 +55,15 @@ PyTorch ops they replaced, and counts their launches on every path
 (``contract`` and ``contract_bwd`` in the launch counts: one per signal
 chunk, twice in a checkpointed step, one backward per chunk).
 
+It holds the MLPs' hidden-layer chain kernels (``mlp_act``) against their
+plain versions at the recipes' hidden-layer shapes (the signal network's
+first and later layers at pop4, array, render and flagship, the sigma
+MLPs' 4.2M-row layers at pop4), shows that the forward given P in bf16 and
+the sums given g in bf16 break the limits, times them beside their byte
+bound and the eager chain, and counts their launches on every path
+(``mlp_act`` and ``mlp_act_bwd``: one per hidden layer of each MLP that
+runs as the chain, the signal network's per chunk and recompute).
+
 Before each path it holds each kernel against its plain PyTorch version
 at that path's shapes and checks the card against the plain CPU path on a
 small config of the same field variant; after it, it shows that the path
@@ -1051,6 +1060,191 @@ def phase_signal_contract(torch, dev, results):
     emit(out)
 
 
+# The recipes' hidden layers for the mlp_act phase: (K, B, R, C, W, context,
+# bias, ch_num); K None is one trial. "render" is the array signal network's
+# first layer under inference_mode (no mask).
+MLP_ACT_SHAPES = {
+    "pop4_signal0": (4, 8, 2050, 1, 512, True, False, 8),
+    "pop4_signal": (4, 8, 2050, 1, 512, False, True, 8),
+    "array_signal0": (None, 8, 2050, 1, 512, True, False, 8),
+    "array_signal": (None, 8, 2050, 1, 512, False, True, 8),
+    "render_signal0": (None, 8, 2050, 1, 512, True, False, 8),
+    "flagship_signal0": (None, 4, 650, 8, 512, True, False, 0),
+    "flagship_signal": (None, 4, 650, 8, 512, False, True, 0),
+    "pop4_sigma_encoder": (4, 8, 131200, 1, 128, False, True, 8),
+    "pop4_sigma_decoder": (4, 1, 1049600, 1, 128, False, True, 0),
+    "flagship_signal0_C32": (None, 4, 650, 32, 512, True, False, 0),  # shell_chunk 32
+    "pop4_signal0_C3": (4, 8, 2050, 3, 512, True, False, 8),  # a chunk that no power of two divides
+}
+
+# The backward's fp32 sums (bias, embedding, h_ray, h_batch) against the exact
+# (fp64) sum of their terms: within MLP_SUM_C·√n·u·‖terms‖₂, n the terms an
+# element adds, ‖·‖₂ the root of their sum of squares (u = 2^−24). A sum of
+# terms of random sign rounds to about √n·u·‖terms‖₂ in any order; the worst
+# reading on the card is 2.7 of it, at h_ray's 8 terms. On contract_sum_limit's
+# scale, √n·u·Σ|terms|, the sound h_ray sums read up to 1.4 while g summed in
+# bf16 reads far below that at the median element of the sigma MLPs' bias
+# sums of ~2^19 terms: no one constant holds both (PERF.md §6).
+MLP_SUM_C = 8.0
+
+
+def mlp_sum_errors(torch, ma, got, g, mask, args):
+    """Each sum of ``got`` (act_backward's tuple) against the exact sum:
+    {sum: (largest error, median error over the elements that add a term)}
+    as shares of MLP_SUM_C·√n·u·‖terms‖₂, and the same two as shares of
+    √n·u·Σ|terms|."""
+    g64 = g.double()
+    ref, sq, ab, n = (ma.act_backward_reference(x, mask, *args, out_dtype=torch.float64)[1:]
+                      for x in (g64, g64 * g64, g64.abs(), torch.ones_like(g64)))
+    del g64
+    l2, l1 = {}, {}
+    for name, a, r, q, m, c in zip(("bias", "emb", "h_ray", "h_batch"), got[1:], ref, sq, ab, n):
+        if r is None:
+            continue
+        err = (a.double() - r).abs()
+        ratios = []
+        for lim in (MLP_SUM_C * c.sqrt() * 2.0 ** -24 * q.sqrt(), c.sqrt() * 2.0 ** -24 * m):
+            ratios.append(torch.where(lim > 0, err / lim.clamp_min(1e-300), torch.where(err > 0, float("inf"), 0.0)))
+        l2[name] = (float(ratios[0].max()), float(ratios[0][c > 0].median()))
+        l1[name] = (float(ratios[1].max()), float(ratios[1][c > 0].median()))
+    return l2, l1
+
+
+def mlp_act_inputs(torch, dev, K, B, R, C, W, context, bias, ch_num, seed=0):
+    """P [M, W] and the layer's tables, N(0, 1) as the recipes' products are."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    K1 = K or 1
+    kk = () if K is None else (K,)
+    p = torch.randn((K1 * B * R * C, W), generator=g, device=dev)
+    t = {}
+    if context:
+        t["h_ray"] = torch.randn((*kk, R, W), generator=g, device=dev)
+        t["h_batch"] = torch.randn((*kk, B, W), generator=g, device=dev)
+    if bias:
+        t["bias"] = torch.randn((*kk, W), generator=g, device=dev)
+    if ch_num:
+        t["emb"] = torch.randn((*kk, ch_num, W), generator=g, device=dev)
+        t["ch"] = (torch.arange(B, device=dev) * 5 + 3) % ch_num
+    return p, t
+
+
+def phase_mlp_act(torch, dev, results):
+    """The MLPs' hidden-layer chain kernels against their plain versions at
+    the recipes' layer shapes and two other shell chunks: A and the mask
+    bit-equal (the same fp32 adds in the same order), g_pre bit-equal, each
+    fp32 sum (bias, embedding by channel, h_ray, h_batch) within
+    ``MLP_SUM_C``·√n·u·‖terms‖₂ of the exact sum, and a second launch
+    bit-equal; the controls, P rounded to bf16 before the adds, g rounded to
+    bf16 before the sums, and sums left at zero, break the bit-equality and
+    every sum's limit at every shape. Then timed (CUDA events over
+    back-to-back wrapper calls, and the kernels' own device time) beside the
+    byte bound at 3.35 TB/s, the plain versions and the eager chain (the
+    adds, ReLU and cast; autograd's backward of them and the cast of g_pre)
+    as the library yardstick."""
+    from avr_torch.ops import mlp_act as ma
+
+    def unpack(mask):
+        bits = torch.tensor([1 << i for i in range(8)], dtype=torch.uint8, device=mask.device)
+        return ((mask[..., None] & bits) != 0).reshape(mask.shape[0], -1)
+
+    def fwd(fn, p, lay, t, **kw):
+        return fn(p, lay, t.get("bias"), t.get("emb"), t.get("ch"), t.get("h_ray"), t.get("h_batch"), **kw)
+
+    def eager(p, t, lay):
+        K, B, R, C = lay
+        W = p.shape[-1]
+        h = p.reshape(K, B, R, C, W)
+        if "h_ray" in t:  # the renderer's earlier h_extra
+            h = h + (t["h_ray"].reshape(K, 1, R, 1, W) + t["h_batch"].reshape(K, B, 1, 1, W))
+        if "bias" in t:
+            h = h + t["bias"].reshape(K, 1, 1, 1, W)
+        if "emb" in t:
+            h = h + t["emb"].reshape(K, -1, W)[:, t["ch"]].reshape(K, B, 1, 1, W)
+        return torch.relu(h)
+
+    out = {"phase": "mlp_act"}
+    for name, (K, B, R, C, W, context, bias, ch_num) in MLP_ACT_SHAPES.items():
+        p, t = mlp_act_inputs(torch, dev, K, B, R, C, W, context, bias, ch_num)
+        lay = ma.Layout(K or 1, B, R, C)
+        M = p.shape[0]
+        rec = {"K": K, "B": B, "R": R, "C": C, "W": W, "context": context, "bias": bias, "ch_num": ch_num}
+        infer = name.startswith("render")
+        a, mask = fwd(ma._forward_kernel, p, lay, t, want_mask=not infer)
+        a2, mask2 = fwd(ma._forward_kernel, p, lay, t, want_mask=not infer)
+        a_c, _ = fwd(ma._forward_kernel, p.bfloat16().float(), lay, t)
+        ra, rmask = fwd(ma.act_reference, p, lay, t)
+        torch.cuda.synchronize()
+        check(torch.equal(a, a2) and (infer or torch.equal(mask, mask2)), f"mlp_act {name}: two launches differ")
+        check(torch.equal(a, ra), f"mlp_act {name}: A differs from the plain version")
+        check(infer or torch.equal(unpack(mask), rmask), f"mlp_act {name}: the mask differs from the plain version")
+        rec["fwd_bf16_control_differing"] = int((a_c != ra).sum())
+        check(rec["fwd_bf16_control_differing"] > 0, f"mlp_act {name}: P in bf16 gives the same A")
+        rec["relu_live_share"] = float(rmask.float().mean())
+        table_bytes = 4 * sum(v.numel() for k, v in t.items() if k != "ch")
+        rec["fwd_bound_ms"] = bound(M * W * (4 + 2 + (0 if infer else 1 / 8)) + table_bytes, 3 * M * W)[0]
+        rec["fwd_ms"] = time_ms(lambda: fwd(ma._forward_kernel, p, lay, t, want_mask=not infer))
+        rec["fwd_kernel_device_ms"] = device_ms(
+            lambda: fwd(ma._forward_kernel, p, lay, t, want_mask=not infer), key="mlp_act")
+        rec["fwd_plain_ms"] = time_ms(lambda: fwd(ma.act_reference, p, lay, t), iters=5)
+        rec["fwd_library_ms"] = time_ms(lambda: eager(p, t, lay).to(torch.bfloat16), iters=5)
+        del a2, mask2, a_c
+        if infer:
+            with torch.inference_mode():
+                rec["fwd_inference_ms"] = time_ms(lambda: fwd(ma._forward_kernel, p, lay, t, want_mask=False))
+            out[name] = rec
+            continue
+
+        g = torch.randn(p.shape, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+        args = (lay, t.get("ch"), ch_num, bias, context)
+        got = ma._backward_kernel(g, mask, *args)
+        again = ma._backward_kernel(g, mask, *args)
+        got32 = ma._backward_kernel(g, mask, *args, out_dtype=torch.float32)
+        ctl = ma._backward_kernel(g.bfloat16().float(), mask, *args)
+        ref = ma.act_backward_reference(g, rmask, *args, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        check(all((x is None and y is None) or torch.equal(x, y) for x, y in zip(got, again)),
+              f"mlp_act {name}: two backward launches differ")
+        check(torch.equal(got[0], ref[0].to(torch.bfloat16)) and torch.equal(got32[0], ref[0]),
+              f"mlp_act {name}: g_pre differs from the plain version")
+        del again, got32, ref
+        zero = [None] + [None if x is None else torch.zeros_like(x) for x in got[1:]]
+        for key, sums in (("sum", got), ("sum_bf16_control", ctl), ("sum_zero_control", zero)):
+            l2, l1 = mlp_sum_errors(torch, ma, sums, g, rmask, args)
+            rec[f"{key}_err_over_limit"] = l2
+            rec[f"{key}_err_over_l1_scale"] = l1
+        rec["plain_sum_err_over_limit"] = mlp_sum_errors(
+            torch, ma, ma.act_backward_reference(g, rmask, *args, out_dtype=torch.float32), g, rmask, args)[0]
+        errs, ctl_errs, zero_errs = (rec[f"{k}_err_over_limit"] for k in ("sum", "sum_bf16_control", "sum_zero_control"))
+        check(errs and max(e for e, _ in [*errs.values(), *rec["plain_sum_err_over_limit"].values()]) <= 1,
+              f"mlp_act {name}: sums off the exact sums {errs}")
+        # each control breaks every sum's limit at its median element, not only at a few
+        check(min(m for _, m in [*ctl_errs.values(), *zero_errs.values()]) > 1,
+              f"mlp_act {name}: a control passes a sum's limit {ctl_errs} {zero_errs}")
+        del ctl, zero
+        plan = ma.backward_plan(lay, W, context, torch.cuda.get_device_properties(dev).multi_processor_count)
+        partial = 4 * lay.K * B * plan["n_tiles"] * W
+        sums = 4 * W * lay.K * ((B if context else 0) + (R if context else 0) + (1 if bias else 0) + ch_num)
+        rec["bwd_plan"] = plan
+        rec["bwd_bound_ms"] = bound(M * W * (4 + 1 / 8 + 2) + 2 * partial + sums, 2 * M * W)[0]
+        rec["bwd_ms"] = time_ms(lambda: ma._backward_kernel(g, mask, *args))
+        rec["bwd_kernel_device_ms"] = device_ms(lambda: ma._backward_kernel(g, mask, *args), key="mlp_act")
+        rec["bwd_plain_ms"] = time_ms(lambda: ma.act_backward_reference(g, rmask, *args), iters=5)
+        leaves = {k: v.detach().requires_grad_(True) for k, v in t.items() if k != "ch"}
+        p_l = p.detach().requires_grad_(True)
+        y_lib = eager(p_l, {**t, **leaves}, lay)
+
+        def library_bwd():
+            grads = torch.autograd.grad(y_lib, [p_l, *leaves.values()], g.reshape(y_lib.shape), retain_graph=True)
+            return grads[0].to(torch.bfloat16)
+
+        rec["bwd_library_ms"] = time_ms(library_bwd, iters=5)
+        del y_lib, leaves, p_l, got
+        out[name] = rec
+        torch.cuda.empty_cache()
+    results["mlp_act"] = {k: v for k, v in out.items() if k != "phase"}
+    emit(out)
+
+
 def phase_small_parity(torch, dev):
     """The card path against the CPU path on the small flagship config."""
     from avr_torch.flagship import flagship_config
@@ -1173,6 +1367,8 @@ def phase_train(torch, dev, profile_dir, results):
     n_c = n_signal_chunks(cfg)
     for k, per in (("contract", 2 * n_c), ("contract_bwd", n_c)):
         check(launches[k] == per * TRAIN_STEPS, f"kernel {k}: {launches[k]} launches in {TRAIN_STEPS} steps")
+    for k, n in mlp_counts(cfg, steps=TRAIN_STEPS).items():
+        check(launches[k] == n, f"kernel {k}: {launches[k]} launches in {TRAIN_STEPS} steps, want {n}")
     results["launches"] = launches
     rec = train_record("train_flagship", cfg, step_ms, bundles, launches, peak)
     results["flagship_steady_ms"] = rec["steady_ms_per_step"]
@@ -1241,6 +1437,8 @@ def phase_train_array(torch, dev, profile_dir, results):
     n_c = n_signal_chunks(cfg)
     for k, per in (("contract", 2 * n_c), ("contract_bwd", n_c)):
         check(launches[k] == per * TRAIN_STEPS, f"kernel {k}: {launches[k]} launches in {TRAIN_STEPS} steps")
+    for k, n in mlp_counts(cfg, steps=TRAIN_STEPS).items():
+        check(launches[k] == n, f"kernel {k}: {launches[k]} launches in {TRAIN_STEPS} steps, want {n}")
     check(launches["scatter"] == 0, f"kernel A: {launches['scatter']} launches")
     check(all(b["das_reg"] > 0 for b in bundles), "the DAS regression term is zero")
     results["array_launches"] = launches
@@ -1263,6 +1461,7 @@ def phase_train_array(torch, dev, profile_dir, results):
         encode_bwd=n_ctx + 2 * n_chunks,
         contract=n_chunks * (2 if tcs.remat else 1),
         contract_bwd=n_chunks,
+        **mlp_counts(cfg, steps=1, n_chunks=n_chunks, streaming=True),
     )
     step_s, _ = make_train_step(fst, consts, rc, tcs, crit)
     state, s_ms, s_bundles, s_launches, s_peak = drive_steps(torch, dev, step_s, state, run[:1], gen)
@@ -1275,11 +1474,13 @@ def phase_train_array(torch, dev, profile_dir, results):
 
 # the keys of the ``kernels`` line → the wrappers' launch counters in
 # ``avr_torch.utils.profiling``; ``*_pop`` are the K-trial wrappers of the
-# same two encode kernels; ``contract*`` the signal pass's kernels (K folded)
+# same two encode kernels; ``contract*`` the signal pass's kernels (K folded);
+# ``mlp_act*`` the MLPs' hidden-layer chain (one call per hidden layer)
 LAUNCH_COUNTERS = {"scatter": "scatter.launches", "encode": "encode.fwd_launches",
                    "encode_bwd": "encode.bwd_launches", "encode_pop": "encode.fwd_pop_launches",
                    "encode_bwd_pop": "encode.bwd_pop_launches", "contract": "contract.fwd_launches",
-                   "contract_bwd": "contract.bwd_launches"}
+                   "contract_bwd": "contract.bwd_launches", "mlp_act": "mlp_act.fwd_launches",
+                   "mlp_act_bwd": "mlp_act.bwd_launches"}
 
 
 def launch_counts():
@@ -1293,6 +1494,31 @@ def launch_counts():
 def counts(**nonzero) -> dict:
     """A launch-count dict with every key of ``launch_counts``, 0 unless given."""
     return {**dict.fromkeys(LAUNCH_COUNTERS, 0), **nonzero}
+
+
+def mlp_counts(cfg, steps: int = 0, renders: int = 0, n_chunks=None, streaming: bool = False) -> dict:
+    """The ``mlp_act`` launches of ``steps`` train steps and ``renders``
+    no-grad render batches of ``cfg``: one forward per hidden layer of each
+    MLP that runs as the chain (ReLU, bf16), the signal network's once per
+    chunk and again in a checkpointed step's recompute, and one backward per
+    hidden layer on the gradient's path. The streaming plan runs the sigma
+    branch per chunk in both passes; the second pass's decoder output has no
+    gradient."""
+    import torch
+
+    from avr_torch.models import field, mlp
+
+    fst = field.build_field(cfg.model, cfg.path.dataset_type)
+    cd = None if cfg.train.compute_dtype in ("float32", "none", None) else getattr(torch, cfg.train.compute_dtype)
+    enc, dec, sig = (st.n_hidden_layers if mlp._fused(st, cd) else 0
+                     for st in (fst.sigma_encoder, fst.sigma_decoder, fst.signal))
+    n_c = n_chunks or n_signal_chunks(cfg)
+    remat = 2 if cfg.train.remat else 1
+    if streaming:
+        fwd, bwd = n_c * remat * (2 * (enc + dec) + sig), n_c * (2 * enc + dec + sig)
+    else:
+        fwd, bwd = enc + dec + remat * n_c * sig, enc + dec + n_c * sig
+    return {"mlp_act": steps * fwd + renders * (enc + dec + n_c * sig), "mlp_act_bwd": steps * bwd}
 
 
 def reset_launch_counts() -> None:
@@ -1405,12 +1631,13 @@ def check_runner_run(runner, launches, vals, encodes: int, npz_keys=()) -> dict:
     for v in vals:
         n_rows = n_test if v["mode"] == "test" else min(n_train, runner_lib.TRAIN_VAL_BATCHES * bs)
         n_b = -(-n_rows // bs)
-        want = counts(encode=encodes * n_b, contract=n_c * n_b)
+        want = counts(encode=encodes * n_b, contract=n_c * n_b, **mlp_counts(runner.cfg, renders=n_b))
         check(v["launches"] == want, f"validate {v['mode']}@{v['it']}: launches {v['launches']} != {want}")
         v["batches"] = n_b
     train_launch = {k: launches[k] - val_launch[k] for k in launches}
     want = counts(encode=encodes * RUNNER_ITERATIONS, encode_bwd=encodes * RUNNER_ITERATIONS,
-                  contract=n_c * (2 if tc.remat else 1) * RUNNER_ITERATIONS, contract_bwd=n_c * RUNNER_ITERATIONS)
+                  contract=n_c * (2 if tc.remat else 1) * RUNNER_ITERATIONS, contract_bwd=n_c * RUNNER_ITERATIONS,
+                  **mlp_counts(runner.cfg, steps=RUNNER_ITERATIONS))
     check(train_launch == want, f"training iterations' launches {train_launch} != {want}")
 
     sps = m["samples_per_sec"]
@@ -1469,7 +1696,9 @@ def check_render_cli(torch, dev, tmp, runner, resumed, encodes: int, keys=()):
           f"render spec {spec.shape} {spec.dtype}")
     check(np.array_equal(spec, ref), f"render CLI differs from make_render_fn: max {np.abs(spec - ref).max()}")
     check(ir.shape == (n_test, T) and np.isfinite(ir).all(), f"render ir {ir.shape}")
-    want = counts(encode=encodes * -(-n_test // bs), contract=n_signal_chunks(runner.cfg) * -(-n_test // bs))
+    n_b = -(-n_test // bs)
+    want = counts(encode=encodes * n_b, contract=n_signal_chunks(runner.cfg) * n_b,
+                  **mlp_counts(runner.cfg, renders=n_b))
     check(render_launch == want, f"render launches {render_launch} != {want}")
     t0 = time.perf_counter()
     for _ in range(RENDER_REPEATS):
@@ -1538,7 +1767,9 @@ def phase_runner_array(torch, dev, cfg, results) -> None:
         check(os.path.exists(os.path.join(rot_dir, "summary.csv")) and np.isfinite(rot_pred).all(),
               "rotate outputs")
         check(rotate_launch["encode"] == 3 * n_rot and rotate_launch["encode_bwd"] == 0
-              and rotate_launch["contract"] == n_signal_chunks(cfg) * n_rot and rotate_launch["contract_bwd"] == 0,
+              and rotate_launch["contract"] == n_signal_chunks(cfg) * n_rot and rotate_launch["contract_bwd"] == 0
+              and rotate_launch["mlp_act"] == mlp_counts(cfg, renders=n_rot)["mlp_act"]
+              and rotate_launch["mlp_act_bwd"] == 0,
               f"rotate launches {rotate_launch} for {n_rot} rotations")
 
         rec = {
@@ -1879,7 +2110,8 @@ def phase_population_array(torch, dev, profile_dir, results):
         peaks.append(torch.cuda.max_memory_allocated(dev))
         per_step.append(launches)
         n_c = n_signal_chunks(cfg)
-        check(launches == counts(encode_pop=3, encode_bwd_pop=3, contract=2 * n_c, contract_bwd=n_c),
+        check(launches == counts(encode_pop=3, encode_bwd_pop=3, contract=2 * n_c, contract_bwd=n_c,
+                                 **mlp_counts(cfg, steps=1)),
               f"population step {i}: launches {launches}, want 3 + 3 of the K-trial encodes and "
               f"{2 * n_c} + {n_c} contractions")
         vals = {k: v.tolist() for k, v in bundle.as_dict().items()}
@@ -1995,7 +2227,8 @@ def phase_hpo_cli(torch, dev, results):
         n_test = 8  # the last of ARRAY_GROUPS groups
         n_c, n_b = n_signal_chunks(cfg), -(-n_test // cfg.train.batch_size)
         want = counts(encode_pop=3 * 2 + 3 * n_b, encode_bwd_pop=3 * 2,
-                      contract=2 * n_c * 2 + n_c * n_b, contract_bwd=n_c * 2)
+                      contract=2 * n_c * 2 + n_c * n_b, contract_bwd=n_c * 2,
+                      **mlp_counts(cfg, steps=2, renders=n_b))
         check(launches == want, f"hpo --pop launches {launches} != {want}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2320,7 +2553,8 @@ def phase_parallel_array(torch, dev, smi: str, results) -> None:
                 if r["step"] != PARALLEL_STEPS:
                     failures.append(f"{name} rank {r['rank']}: step count {r['step']}")
                 for i, (st, ref) in enumerate(zip(r["steps"], refs)):
-                    if st["launches"] != counts(encode=3, encode_bwd=3, contract=2 * n_c, contract_bwd=n_c):
+                    if st["launches"] != counts(encode=3, encode_bwd=3, contract=2 * n_c, contract_bwd=n_c,
+                                                **mlp_counts(cfg, steps=1)):
                         failures.append(f"{name} rank {r['rank']} step {i}: launches {st['launches']}, "
                                         f"want 3 + 3 and {2 * n_c} + {n_c}")
                     for k, b in ref[3].items():
@@ -2538,6 +2772,7 @@ def main() -> int:
     phase_encode_population(torch, dev, afst, ax, aview, results)
     del ax, aview
     phase_signal_contract(torch, dev, results)
+    phase_mlp_act(torch, dev, results)
     phase_small_standard(torch, dev)
     phase_train_array(torch, dev, args.profile, results)
     phase_runner_array(torch, dev, array_config(), results)
@@ -2593,6 +2828,24 @@ def main() -> int:
                for shape, rec in results["contract"].items() if kind == "fwd" or shape != "render"},
         }
         for kind, key in (("fwd", "contract"), ("bwd", "contract_bwd"))
+    ] + [
+        {
+            "name": f"mlp_act_{kind}", "route": "cuda", "source": "avr_torch/ops/csrc/mlp_act.cu",
+            "replaces": "XLA's fusion of the adds, ReLU and convert around avr_tpu/models/mlp.py _matmul_cd",
+            "launches_per_step": {
+                "flagship": results["launches"][key] / TRAIN_STEPS,
+                "array": results["array_launches"][key] / TRAIN_STEPS,
+                "array_streaming": results["array_streaming_launches"][key],
+                "population": results["population"]["launches"][key] / TRAIN_STEPS,
+            },
+            "launches_per_validation_batch": {
+                phase: results[rkey]["launches_per_validation_batch"][key]
+                for phase, rkey in (("runner_array", "runner"), ("runner_flagship", "runner_flagship"))
+            },
+            **{shape: {k[len(kind) + 1:]: v for k, v in rec.items() if k.startswith(f"{kind}_")}
+               for shape, rec in results["mlp_act"].items() if kind == "fwd" or not shape.startswith("render")},
+        }
+        for kind, key in (("fwd", "mlp_act"), ("bwd", "mlp_act_bwd"))
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {

@@ -27,6 +27,14 @@ def _rel(a, b):
     return np.abs(a - b).max() / (np.abs(b).max() + 1e-30)
 
 
+def context_pair(rng, bs, R, W):
+    """A signal context (h_ray [R, W], h_batch [bs, W]) as numpy N(0, 1), and
+    the JAX package's h_extra [bs, R, 1, W] = h_ray + h_batch built from it."""
+    h_ray = rng.normal(size=(R, W)).astype(np.float32)
+    h_batch = rng.normal(size=(bs, W)).astype(np.float32)
+    return (h_ray, h_batch), h_ray[None, :, None, :] + h_batch[:, None, None, :]
+
+
 def with_bias(pair):
     """The signal of the port's signal functions' (output before the output
     layer's bias, bias or None), the bias added as the JAX network adds it."""
@@ -139,8 +147,9 @@ def test_signal_context_and_tail_match_jax():
     psig = rng.normal(size=(2, 20, 3, tfst.encodings["pos_sig"].n_output_dims)).astype(np.float32)
     h_extra = np.asarray(jr)[None, :, None, :] + np.asarray(jb)[:, None, None, :]
     js = jfield.signal_tail_from_features(jp, jfst, jnp.asarray(feat), jnp.asarray(psig), jnp.asarray(h_extra))
+    context = (torch.from_numpy(np.array(jr)), torch.from_numpy(np.array(jb)))
     ts = with_bias(tfield.signal_tail_from_features(
-        tparams, tfst, torch.from_numpy(feat), torch.from_numpy(psig), torch.from_numpy(h_extra)
+        tparams, tfst, torch.from_numpy(feat), torch.from_numpy(psig), context
     ))
     assert ts.shape == js.shape
     assert _rel(ts.detach().numpy(), js) < 1e-5

@@ -17,7 +17,7 @@ from avr_tpu.config import ChannelEmbedConfig
 from avr_tpu.models import field as jfield
 from avr_tpu.models import mlp as jmlp
 from conftest import tiny_model_config
-from test_torch_field import _rel, complex_setup, with_bias
+from test_torch_field import _rel, complex_setup, context_pair, with_bias
 
 from avr_torch.convert import params_from_jax, params_to_numpy
 from avr_torch.models import field as tfield
@@ -153,7 +153,7 @@ def test_factored_queries_match_jax(mode):
     tx = rng.uniform(-1, 1, (2, 3)).astype(np.float32)
     ch = np.asarray([3, 6], np.int32)
     feat = rng.normal(size=(2, 20, 3, 128)).astype(np.float32)
-    h_extra = rng.normal(size=(2, 20, 1, 32)).astype(np.float32)
+    (h_ray, h_batch), h_extra = context_pair(rng, 2, 20, 32)
     j = lambda a: jnp.asarray(a)  # noqa: E731
     t = torch.from_numpy
     cb = ch[:, None, None]
@@ -175,7 +175,8 @@ def test_factored_queries_match_jax(mode):
     )
     check_vjp(
         lambda p: (jfield.signal_tail_from_features(p, jfst, j(feat), None, j(h_extra), ch_idx=j(cb)),),
-        lambda p: (with_bias(tfield.signal_tail_from_features(p, tfst, t(feat), None, t(h_extra), ch_idx=t(cb))),),
+        lambda p: (with_bias(tfield.signal_tail_from_features(p, tfst, t(feat), None, (t(h_ray), t(h_batch)),
+                                                              ch_idx=t(cb))),),
         jparams, tparams,
     )
 
@@ -191,12 +192,13 @@ def test_signal_from_parts_matches_jax(variant):
     rng = np.random.default_rng(5)
     feat = rng.normal(size=(2, 9, 3, D)).astype(np.float32)
     pts = rng.uniform(-1, 1, (2, 9, 3, 3)).astype(np.float32)
-    h_extra = rng.normal(size=(2, 9, 1, 32)).astype(np.float32)
+    (h_ray, h_batch), h_extra = context_pair(rng, 2, 9, 32)
     j = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
     t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
     check_vjp(
         lambda p: (jfield.signal_from_parts(p, jfst, j(feat), j(pts), j(h_extra), ch_idx=j(ch)),),
-        lambda p: (with_bias(tfield.signal_from_parts(p, tfst, t(feat), t(pts), t(h_extra), ch_idx=t(ch))),),
+        lambda p: (with_bias(tfield.signal_from_parts(p, tfst, t(feat), t(pts), (t(h_ray), t(h_batch)),
+                                                      ch_idx=t(ch))),),
         jparams, tparams,
     )
 
