@@ -23,7 +23,9 @@ With the tracer of ``utils.profiling`` on, the render records the spans
 weights) and ``render.signal`` (pass 2), and in it one ``render.chunk`` per
 signal chunk, opened inside the checkpointed function so that the
 backward's recompute records it again; the counter ``render.chunk_calls``
-counts those calls, recomputes included.
+counts those calls, recomputes included. The counter ``render.feature_splits``
+counts the calls whose precomputed per-point tensors were split into more
+than one chunk (once a call; the streaming plan never counts).
 
 With ``remat`` each chunk of either pass runs under
 ``torch.utils.checkpoint`` (the JAX ``remat=True``): its activations are
@@ -59,6 +61,15 @@ def _pick_chunk(n_samples: int, requested: int) -> int:
     while n_samples % c:
         c -= 1
     return c
+
+
+def shell_chunks(x: torch.Tensor, C: int, dim: int):
+    """x's shell chunks of C along ``dim``, as the views of one split.
+
+    Autograd then concatenates the chunks' gradients once, in one
+    SplitBackward0; a slice per chunk would fill a zero gradient of x's full
+    size in each chunk's backward and add it to the other chunks'."""
+    return torch.split(x, C, dim=dim)
 
 
 def render_fused(
@@ -185,16 +196,19 @@ def render_fused(
     with profiling.span("render.signal"):
         acc_re = torch.zeros((w.shape[0], F), dtype=torch.float32, device=device)
         acc_im = torch.zeros((w.shape[0], F), dtype=torch.float32, device=device)
-        for s in chunks():
-            rest = (
-                w[:, :, s], consts.tail_mask[s], consts.pathloss[s], consts.phase_re[s],
-                consts.phase_im[s],
-            )
+        if precompute:
+            feat_cs = shell_chunks(sigma_feat, C, -2)
+            psig_cs = (None,) * n_chunks if psig is None else shell_chunks(psig, C, -2)
+            dist_cs = shell_chunks(dist_all, C, -1)
+            w_cs = shell_chunks(w, C, -1)
+            if n_chunks > 1:
+                profiling.count("render.feature_splits")
+        for i, s in enumerate(chunks()):
+            rest = (consts.tail_mask[s], consts.pathloss[s], consts.phase_re[s], consts.phase_im[s])
             if precompute:
-                psig_c = None if psig is None else psig[..., s, :]
-                re, im = run(precomputed_chunk, sigma_feat[..., s, :], psig_c, dist_all[:, :, s], *rest)
+                re, im = run(precomputed_chunk, feat_cs[i], psig_cs[i], dist_cs[i], w_cs[i], *rest)
             else:
-                re, im = run(streaming_chunk, d_vals[s], *rest)
+                re, im = run(streaming_chunk, d_vals[s], w[:, :, s], *rest)
             acc_re = acc_re + re
             acc_im = acc_im + im
         return torch.stack([acc_re, acc_im], dim=-1).reshape(*lead, F, 2)

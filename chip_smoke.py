@@ -64,6 +64,11 @@ bound and the eager chain, and counts their launches on every path
 (``mlp_act`` and ``mlp_act_bwd``: one per hidden layer of each MLP that
 runs as the chain, the signal network's per chunk and recompute).
 
+Beside the launch counts it reads ``render.feature_splits`` on every path
+(``feature_splits``: one per render of the precomputed plan in more than
+one shell chunk, train step or render batch, none in the streaming plan)
+and prints them per step and per runner iteration and validation batch.
+
 Before each path it holds each kernel against its plain PyTorch version
 at that path's shapes and checks the card against the plain CPU path on a
 small config of the same field variant; after it, it shows that the path
@@ -1367,8 +1372,8 @@ def phase_train(torch, dev, profile_dir, results):
     n_c = n_signal_chunks(cfg)
     for k, per in (("contract", 2 * n_c), ("contract_bwd", n_c)):
         check(launches[k] == per * TRAIN_STEPS, f"kernel {k}: {launches[k]} launches in {TRAIN_STEPS} steps")
-    for k, n in mlp_counts(cfg, steps=TRAIN_STEPS).items():
-        check(launches[k] == n, f"kernel {k}: {launches[k]} launches in {TRAIN_STEPS} steps, want {n}")
+    for k, n in {**mlp_counts(cfg, steps=TRAIN_STEPS), **split_counts(cfg, steps=TRAIN_STEPS)}.items():
+        check(launches[k] == n, f"{k}: {launches[k]} in {TRAIN_STEPS} steps, want {n}")
     results["launches"] = launches
     rec = train_record("train_flagship", cfg, step_ms, bundles, launches, peak)
     results["flagship_steady_ms"] = rec["steady_ms_per_step"]
@@ -1437,8 +1442,8 @@ def phase_train_array(torch, dev, profile_dir, results):
     n_c = n_signal_chunks(cfg)
     for k, per in (("contract", 2 * n_c), ("contract_bwd", n_c)):
         check(launches[k] == per * TRAIN_STEPS, f"kernel {k}: {launches[k]} launches in {TRAIN_STEPS} steps")
-    for k, n in mlp_counts(cfg, steps=TRAIN_STEPS).items():
-        check(launches[k] == n, f"kernel {k}: {launches[k]} launches in {TRAIN_STEPS} steps, want {n}")
+    for k, n in {**mlp_counts(cfg, steps=TRAIN_STEPS), **split_counts(cfg, steps=TRAIN_STEPS)}.items():
+        check(launches[k] == n, f"{k}: {launches[k]} in {TRAIN_STEPS} steps, want {n}")
     check(launches["scatter"] == 0, f"kernel A: {launches['scatter']} launches")
     check(all(b["das_reg"] > 0 for b in bundles), "the DAS regression term is zero")
     results["array_launches"] = launches
@@ -1462,6 +1467,7 @@ def phase_train_array(torch, dev, profile_dir, results):
         contract=n_chunks * (2 if tcs.remat else 1),
         contract_bwd=n_chunks,
         **mlp_counts(cfg, steps=1, n_chunks=n_chunks, streaming=True),
+        **split_counts(cfg, steps=1, streaming=True),
     )
     step_s, _ = make_train_step(fst, consts, rc, tcs, crit)
     state, s_ms, s_bundles, s_launches, s_peak = drive_steps(torch, dev, step_s, state, run[:1], gen)
@@ -1475,12 +1481,14 @@ def phase_train_array(torch, dev, profile_dir, results):
 # the keys of the ``kernels`` line → the wrappers' launch counters in
 # ``avr_torch.utils.profiling``; ``*_pop`` are the K-trial wrappers of the
 # same two encode kernels; ``contract*`` the signal pass's kernels (K folded);
-# ``mlp_act*`` the MLPs' hidden-layer chain (one call per hidden layer)
+# ``mlp_act*`` the MLPs' hidden-layer chain (one call per hidden layer);
+# beside them ``feature_splits``, the renders that split their precomputed
+# per-point tensors into the shell chunks (no launch)
 LAUNCH_COUNTERS = {"scatter": "scatter.launches", "encode": "encode.fwd_launches",
                    "encode_bwd": "encode.bwd_launches", "encode_pop": "encode.fwd_pop_launches",
                    "encode_bwd_pop": "encode.bwd_pop_launches", "contract": "contract.fwd_launches",
                    "contract_bwd": "contract.bwd_launches", "mlp_act": "mlp_act.fwd_launches",
-                   "mlp_act_bwd": "mlp_act.bwd_launches"}
+                   "mlp_act_bwd": "mlp_act.bwd_launches", "feature_splits": "render.feature_splits"}
 
 
 def launch_counts():
@@ -1519,6 +1527,15 @@ def mlp_counts(cfg, steps: int = 0, renders: int = 0, n_chunks=None, streaming: 
     else:
         fwd, bwd = enc + dec + remat * n_c * sig, enc + dec + n_c * sig
     return {"mlp_act": steps * fwd + renders * (enc + dec + n_c * sig), "mlp_act_bwd": steps * bwd}
+
+
+def split_counts(cfg, steps: int = 0, renders: int = 0, streaming: bool = False) -> dict:
+    """``render.feature_splits`` of ``steps`` train steps and ``renders``
+    render batches of ``cfg``: one per ``render_fused`` call of the
+    precomputed plan in more than one shell chunk, none in the streaming
+    plan."""
+    split = not streaming and n_signal_chunks(cfg) > 1
+    return {"feature_splits": steps + renders if split else 0}
 
 
 def reset_launch_counts() -> None:
@@ -1631,13 +1648,15 @@ def check_runner_run(runner, launches, vals, encodes: int, npz_keys=()) -> dict:
     for v in vals:
         n_rows = n_test if v["mode"] == "test" else min(n_train, runner_lib.TRAIN_VAL_BATCHES * bs)
         n_b = -(-n_rows // bs)
-        want = counts(encode=encodes * n_b, contract=n_c * n_b, **mlp_counts(runner.cfg, renders=n_b))
+        want = counts(encode=encodes * n_b, contract=n_c * n_b, **mlp_counts(runner.cfg, renders=n_b),
+                      **split_counts(runner.cfg, renders=n_b))
         check(v["launches"] == want, f"validate {v['mode']}@{v['it']}: launches {v['launches']} != {want}")
         v["batches"] = n_b
     train_launch = {k: launches[k] - val_launch[k] for k in launches}
     want = counts(encode=encodes * RUNNER_ITERATIONS, encode_bwd=encodes * RUNNER_ITERATIONS,
                   contract=n_c * (2 if tc.remat else 1) * RUNNER_ITERATIONS, contract_bwd=n_c * RUNNER_ITERATIONS,
-                  **mlp_counts(runner.cfg, steps=RUNNER_ITERATIONS))
+                  **mlp_counts(runner.cfg, steps=RUNNER_ITERATIONS),
+                  **split_counts(runner.cfg, steps=RUNNER_ITERATIONS))
     check(train_launch == want, f"training iterations' launches {train_launch} != {want}")
 
     sps = m["samples_per_sec"]
@@ -1698,7 +1717,7 @@ def check_render_cli(torch, dev, tmp, runner, resumed, encodes: int, keys=()):
     check(ir.shape == (n_test, T) and np.isfinite(ir).all(), f"render ir {ir.shape}")
     n_b = -(-n_test // bs)
     want = counts(encode=encodes * n_b, contract=n_signal_chunks(runner.cfg) * n_b,
-                  **mlp_counts(runner.cfg, renders=n_b))
+                  **mlp_counts(runner.cfg, renders=n_b), **split_counts(runner.cfg, renders=n_b))
     check(render_launch == want, f"render launches {render_launch} != {want}")
     t0 = time.perf_counter()
     for _ in range(RENDER_REPEATS):
@@ -1769,7 +1788,8 @@ def phase_runner_array(torch, dev, cfg, results) -> None:
         check(rotate_launch["encode"] == 3 * n_rot and rotate_launch["encode_bwd"] == 0
               and rotate_launch["contract"] == n_signal_chunks(cfg) * n_rot and rotate_launch["contract_bwd"] == 0
               and rotate_launch["mlp_act"] == mlp_counts(cfg, renders=n_rot)["mlp_act"]
-              and rotate_launch["mlp_act_bwd"] == 0,
+              and rotate_launch["mlp_act_bwd"] == 0
+              and rotate_launch["feature_splits"] == split_counts(cfg, renders=n_rot)["feature_splits"],
               f"rotate launches {rotate_launch} for {n_rot} rotations")
 
         rec = {
@@ -2111,7 +2131,7 @@ def phase_population_array(torch, dev, profile_dir, results):
         per_step.append(launches)
         n_c = n_signal_chunks(cfg)
         check(launches == counts(encode_pop=3, encode_bwd_pop=3, contract=2 * n_c, contract_bwd=n_c,
-                                 **mlp_counts(cfg, steps=1)),
+                                 **mlp_counts(cfg, steps=1), **split_counts(cfg, steps=1)),
               f"population step {i}: launches {launches}, want 3 + 3 of the K-trial encodes and "
               f"{2 * n_c} + {n_c} contractions")
         vals = {k: v.tolist() for k, v in bundle.as_dict().items()}
@@ -2228,7 +2248,7 @@ def phase_hpo_cli(torch, dev, results):
         n_c, n_b = n_signal_chunks(cfg), -(-n_test // cfg.train.batch_size)
         want = counts(encode_pop=3 * 2 + 3 * n_b, encode_bwd_pop=3 * 2,
                       contract=2 * n_c * 2 + n_c * n_b, contract_bwd=n_c * 2,
-                      **mlp_counts(cfg, steps=2, renders=n_b))
+                      **mlp_counts(cfg, steps=2, renders=n_b), **split_counts(cfg, steps=2, renders=n_b))
         check(launches == want, f"hpo --pop launches {launches} != {want}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2554,7 +2574,7 @@ def phase_parallel_array(torch, dev, smi: str, results) -> None:
                     failures.append(f"{name} rank {r['rank']}: step count {r['step']}")
                 for i, (st, ref) in enumerate(zip(r["steps"], refs)):
                     if st["launches"] != counts(encode=3, encode_bwd=3, contract=2 * n_c, contract_bwd=n_c,
-                                                **mlp_counts(cfg, steps=1)):
+                                                **mlp_counts(cfg, steps=1), **split_counts(cfg, steps=1)):
                         failures.append(f"{name} rank {r['rank']} step {i}: launches {st['launches']}, "
                                         f"want 3 + 3 and {2 * n_c} + {n_c}")
                     for k, b in ref[3].items():
@@ -2847,6 +2867,15 @@ def main() -> int:
         }
         for kind, key in (("fwd", "mlp_act"), ("bwd", "mlp_act_bwd"))
     ]})
+    key = "feature_splits"  # renders that split their precomputed features, checked in each phase
+    emit({"phase": "feature_splits", "per_step": {
+        "flagship": results["launches"][key] / TRAIN_STEPS,
+        "array": results["array_launches"][key] / TRAIN_STEPS,
+        "array_streaming": results["array_streaming_launches"][key],
+        "population": results["population"]["launches"][key] / TRAIN_STEPS,
+    }, **{phase: {"per_iteration": results[rkey]["launches_per_iteration"][key],
+                  "per_validation_batch": results[rkey]["launches_per_validation_batch"][key]}
+          for phase, rkey in (("runner_array", "runner"), ("runner_flagship", "runner_flagship"))}})
     print(smi, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

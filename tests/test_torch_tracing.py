@@ -183,7 +183,7 @@ def test_off_step_counts_chunks_and_records_no_span():
     dirs = torch.nn.functional.normalize(torch.randn(18, 3, generator=torch.Generator().manual_seed(1)), dim=-1)
     step(state, batch, dirs)
     spans, counts = profiling.drain()
-    assert spans == [] and counts == {"render.chunk_calls": 2 * CHUNKS}
+    assert spans == [] and counts == {"render.chunk_calls": 2 * CHUNKS, "render.feature_splits": 1}
 
 
 def test_render_request_records_render_and_no_recompute(tracer):
@@ -194,7 +194,7 @@ def test_render_request_records_render_and_no_recompute(tracer):
     spans, counts = tracer.drain()
     assert [s["name"] for s in spans if s["parent"] is None] == ["render"]
     assert [s["name"] for s in spans].count("render.chunk") == CHUNKS
-    assert counts == {"render.chunk_calls": CHUNKS}
+    assert counts == {"render.chunk_calls": CHUNKS, "render.feature_splits": 1}
 
 
 def test_population_step_records_one_criterion_span(tracer):
