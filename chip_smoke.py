@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the avr_torch port (NVIDIA H100).
 
-    python3 chip_smoke.py [--profile DIR] [--kernel-a-earlier SOURCE]
+    python3 chip_smoke.py [--profile DIR]
 
 Builds the port's CUDA kernels from ``avr_torch/ops/csrc`` (nvcc, cached
 in ``build/avr_torch_kernels/``) and drives six paths of the port, each
@@ -47,42 +47,32 @@ at full width with random weights from a seed:
     shapes; prints each rank's step, all-reduce time and bytes and peak
     memory.
 
-It holds the signal pass's mask-and-contract kernels (``signal_contract``)
-against their plain versions at the pop4, array, render, flagship and data ×
-ray plan chunk shapes, shows that the same kernels given the signal in bf16
-break the limits, times them beside their byte bound and the chain of
-PyTorch ops they replaced, and counts their launches on every path
-(``contract`` and ``contract_bwd`` in the launch counts: one per signal
-chunk, twice in a checkpointed step, one backward per chunk).
-
-It holds the MLPs' hidden-layer chain kernels (``mlp_act``) against their
-plain versions at the recipes' hidden-layer shapes (the signal network's
-first and later layers at pop4, array, render and flagship, the sigma
-MLPs' 4.2M-row layers at pop4), shows that the forward given P in bf16 and
-the sums given g in bf16 break the limits, times them beside their byte
-bound and the eager chain, and counts their launches on every path
-(``mlp_act`` and ``mlp_act_bwd``: one per hidden layer of each MLP that
-runs as the chain, the signal network's per chunk and recompute).
+One home for each hand kernel's card checks: its test file's tests marked
+``card`` hold it against its plain version (shapes, inputs, limits, the
+controls that must break them, bit-equality). Right after the build the
+script runs them (``phase_card_tests``: ``python -m pytest --noconftest -m
+card`` on ``CARD_TEST_FILES`` in a subprocess) and fails if any fails or
+skips. Then it does what a test cannot do: it drives the paths above end to end,
+counts each kernel's launches on every path (``KERNELS``, the wrappers'
+counters), and times the kernels beside their byte bound, their plain
+version and the library route they replaced. The signal pass's
+mask-and-contract kernels (``signal_contract``) and the MLPs' hidden-layer
+chain (``mlp_act``) are timed at their card tests' shapes and inputs, the
+array shape once more under ``inference_mode``. The encode pair is still
+held here against its plain versions at each path's shapes, and the card
+against the plain CPU path on a small config of each field variant. The
+generic scatter kernel (kernel A) is off every path: ``kernel_a_scatter``
+holds it on boundary streams in a grid of one wave and in one past it,
+F = 1, 2, 4, and times it against ``zero_`` + ``index_add_``.
 
 Beside the launch counts it reads ``render.feature_splits`` on every path
-(``feature_splits``: one per render of the precomputed plan in more than
-one shell chunk, train step or render batch, none in the streaming plan)
-and prints them per step and per runner iteration and validation batch.
-
-Before each path it holds each kernel against its plain PyTorch version
-at that path's shapes and checks the card against the plain CPU path on a
-small config of the same field variant; after it, it shows that the path
-went through the encode forward and backward kernels (the generic scatter
-kernel is held and timed, but is off every path: ``kernel_a_scatter`` holds
-it on boundary streams in a grid of one wave and in one past it, F = 1, 2,
-4, and at the flagship and array streams prints its runs, its share of rows
-summed in shared memory, its global REDs and its time split into dense
-levels, hashed levels and zero fill; ``--kernel-a-earlier SOURCE`` times
-kernel A built from an earlier commit's source beside it). Prints one JSON
-object per phase, the ``nvidia-smi`` name/power line, a ``kernels`` summary, and
-as its last line ``{"ok": true, "device": {...}}``. Any failed check raises
-and the exit code is non-zero. Without a CUDA device it exits with 2 and
-prints no result.
+(one per render of the precomputed plan in more than one shell chunk, none
+in the streaming plan). Prints one JSON object per phase, the
+``nvidia-smi`` name/power line, a ``kernels`` summary (each kernel's
+launches per path and its timings by shape), and as its last line
+``{"ok": true, "device": {...}}``. Any failed check raises and the exit
+code is non-zero. Without a CUDA device it exits with 2 and prints no
+result.
 """
 
 from __future__ import annotations
@@ -94,12 +84,6 @@ import os
 import subprocess
 import sys
 import time
-
-# Card peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s and fp32
-# (non-tensor-core) operations/s. The bound of a kernel is the larger of
-# bytes/HBM rate and operations/peak rate for their type.
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
 
 # Train steps driven on the card per path; the first one is not steady.
 TRAIN_STEPS = 3
@@ -124,25 +108,12 @@ STREAMING_SHELL_CHUNK = 8
 # runs of the parallel_array phase (name, ranks, data axis) and their steps
 PARALLEL_RUNS = (("data2_ray2", 4, 2), ("ray3", 3, 1))
 PARALLEL_STEPS = 2
-# trials per population step, and the known-good seed trial of the array
-# recipe's runtime-variant study (scripts/hpo_real_study.py:126-131)
+# trials per population step; the first is the seed trial of the benchmark's
+# population traffic (``trials.seed_trial``)
 POP_K = 4
-SEED_TRIAL = {
-    "lr": 1e-3, "eta_min_ratio": 0.1, "weight_decay": 0.0,
-    "spec_loss_weight": 1.0, "angle_loss_weight": 0.5,
-    "time_loss_weight": 100.0, "energy_loss_weight": 5.0,
-    "multistft_loss_weight": 1.0, "das_reg_loss_weight": 10.0,
-}
-
-# Device kernels of a profiled step, grouped by kind: the first kind with
-# a key in the (lower-cased) kernel name.
-TRACE_KINDS = (
-    ("port", ("hashgrid_encode_kernel", "hashgrid_encode_bwd_kernel", "scatter_add_rows_kernel")),
-    ("matmul", ("nvjet", "gemm")),
-    ("fft", ("fft",)),
-    ("reduce", ("reduce_kernel",)),
-    ("elementwise", ("elementwise", "copy")),
-)
+POP_TRAFFIC = os.path.join(ROOT, "benchmark", "traffic", "pop4_groups16.json")
+# the test files whose tests marked ``card`` hold the hand kernels on the card
+CARD_TEST_FILES = ("tests/test_torch_signal_contract.py", "tests/test_torch_mlp_act.py")
 
 
 def emit(obj) -> None:
@@ -206,8 +177,13 @@ def device_ms(fn, iters: int = 10, warmup: int = 2, attempts: int = 3, key: str 
 
 
 def bound(n_bytes: float, n_ops: float):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    """The least ms of a kernel at the card's peaks (``benchmark/counts.py``):
+    the larger of bytes at the HBM rate and fp32 operations at the fp32 rate,
+    and which of the two it is."""
+    from benchmark import counts as peaks
+
+    t_bytes = n_bytes / peaks.HBM_BYTES * 1e3
+    t_ops = n_ops / peaks.FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -308,49 +284,10 @@ def boundary_streams(F: int, chunk_rows: int, slab_rows: int, chunks: int, seed:
     }
 
 
-def scatter_counts(torch, lay: dict, idx, n_rows: int) -> dict:
-    """What kernel A does with a stream, computed from the stream with torch
-    by the kernel's rule (csrc/hash_scatter.cu) and its layout ``lay``
-    (``hash_scatter.kernel_layout``): the runs, 1 + Σ[idx[i] ≠ idx[i−1]];
-    whether the launch may use the slab (more chunks than resident blocks);
-    per chunk, the slab if it may and the span of the chunk's in-range rows
-    fits, else L2; the share of the stream's rows summed in shared memory;
-    and the global REDs the design issues: one per touched row of a slab
-    chunk, one per run and warp (256 rows) of the rest. ``row_reds`` counts
-    one RED per in-range row, what a kernel that neither folds nor
-    privatises issues."""
-    C, W, M = lay["chunk_rows"], 256, idx.shape[0]
-    use_slab = -(-M // C) > lay["resident_blocks"]
-    valid = (idx >= 0) & (idx < n_rows)
-    keys = torch.where(valid, idx, -1)
-    keys = torch.cat([keys, keys.new_full(((-M) % C,), -1)]).view(-1, C)
-    hi = keys.max(1).values
-    lo = torch.where(keys >= 0, keys, torch.iinfo(torch.int32).max).min(1).values
-    live = hi >= 0
-    slab = live & (hi.long() - lo.long() + 1 <= lay["slab_rows"]) & use_slab
-    direct = live & ~slab
-    srt = keys.sort(1).values
-    distinct = (srt[:, :1] >= 0).sum(1) + ((srt[:, 1:] != srt[:, :-1]) & (srt[:, 1:] >= 0)).sum(1)
-    w = keys.view(-1, W)
-    warp_runs = ((w[:, :1] >= 0).sum(1) + ((w[:, 1:] != w[:, :-1]) & (w[:, 1:] >= 0)).sum(1)).view(-1, C // W).sum(1)
-    rows = torch.full((keys.shape[0],), C, device=idx.device)
-    rows[-1] = M - C * (keys.shape[0] - 1)
-    del srt, w, keys
-    return {
-        "runs": 1 + int((idx[1:] != idx[:-1]).sum()), "in_range_rows": int(valid.sum()),
-        "use_slab": use_slab, "chunks": {"slab": int(slab.sum()), "l2": int(direct.sum())},
-        "smem_row_share": float(rows[slab].sum()) / M,
-        "reds": int(distinct[slab].sum() + warp_runs[direct].sum()),
-        "row_reds": int(valid.sum()),
-    }
-
-
-def time_kernel_a(torch, hs, idx, upd, n_rows: int, iters: int, earlier=None) -> dict:
-    """Kernel A, its library route (``zero_`` and ``index_add_`` into an
-    [n_rows, F] buffer) and, where given, an earlier build of kernel A
-    (``earlier_kernel_a``), each timed twice with the same iterations in
-    the order kernel, library, earlier, earlier, library, kernel: the mean
-    of each pair."""
+def time_kernel_a(torch, hs, idx, upd, n_rows: int, iters: int) -> dict:
+    """Kernel A and its library route (``zero_`` and ``index_add_`` into an
+    [n_rows, F] buffer), each timed twice with the same iterations in the
+    order kernel, library, library, kernel: the mean of each pair."""
     buf = torch.zeros((n_rows, upd.shape[1]), device=upd.device)
 
     def library():
@@ -358,62 +295,10 @@ def time_kernel_a(torch, hs, idx, upd, n_rows: int, iters: int, earlier=None) ->
         buf.index_add_(0, idx, upd)
 
     fns = {"kernel_ms": lambda: hs.scatter_add_rows(idx, upd, n_rows), "library_ms": library}
-    if earlier is not None:
-        fns["earlier_kernel_ms"] = lambda: earlier(idx, upd, n_rows)
     ms = dict.fromkeys(fns, 0.0)
     for key in [*fns, *reversed(fns)]:
         ms[key] += time_ms(fns[key], iters=iters) / 2
     return ms
-
-
-def earlier_kernel_a(torch, source: str):
-    """Kernel A built from another source with the same C entry
-    (``avr_scatter_add_rows``; an earlier commit's ``hash_scatter.cu``), to
-    time beside the repo's: a function (idx, upd, n_rows) → out that zeroes
-    the output and launches as the wrapper does."""
-    import ctypes
-    import hashlib
-
-    from avr_torch.ops import _build
-
-    text = open(source, "rb").read()
-    lib = _build.BUILD_DIR / f"libearlier_hash_scatter-{hashlib.sha256(text).hexdigest()[:16]}.so"
-    if not lib.exists():
-        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib), source],
-                       check=True, capture_output=True, text=True)
-    fn = ctypes.CDLL(str(lib)).avr_scatter_add_rows
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
-    def run(idx, upd, n_rows):
-        out = torch.zeros((n_rows, upd.shape[1]), device=upd.device)
-        rc = fn(idx.data_ptr(), upd.data_ptr(), out.data_ptr(), idx.shape[0], n_rows, upd.shape[1],
-                torch.cuda.current_stream(upd.device).cuda_stream)
-        check(rc == 0, f"earlier kernel A from {source}: CUDA error {rc}")
-        return out
-
-    return run
-
-
-def explain_kernel_a(torch, dev, hs, idx, upd, n_rows: int, m_dense: int, iters: int) -> dict:
-    """Kernel A at a level-major stream: the time and counts
-    (``scatter_counts``) of the whole stream, of its dense levels (the first
-    m_dense rows) and of its hashed levels (every part's launch zeroes the
-    whole output), and the zero fill alone."""
-    F = upd.shape[1]
-    lay = hs.kernel_layout(F)
-    parts = {"all": slice(0, idx.shape[0]), "dense_levels": slice(0, m_dense),
-             "hashed_levels": slice(m_dense, idx.shape[0])}
-    rec = {"zero_fill_ms": time_ms(lambda: torch.zeros((n_rows, F), device=dev), iters=iters)}
-    for part, s in parts.items():
-        i_s, u_s = idx[s], upd[s]
-        rec[part] = {
-            "M": i_s.shape[0], "distinct_rows": int(torch.unique(i_s).numel()),
-            "kernel_ms": time_ms(lambda: hs.scatter_add_rows(i_s, u_s, n_rows), iters=iters),
-            **scatter_counts(torch, lay, i_s, n_rows),
-        }
-    return rec
 
 
 def hold_kernel_a(torch, hs, idx, upd, n_rows: int, what: str) -> dict:
@@ -427,7 +312,7 @@ def hold_kernel_a(torch, hs, idx, upd, n_rows: int, what: str) -> dict:
     return {"max_abs_err": err, "scale": scale}
 
 
-def phase_scatter(torch, dev, static, x, results, earlier=None):
+def phase_scatter(torch, dev, static, x, results):
     """Kernel A, the generic scatter, against its plain version and
     ``index_add_``: first on the boundary streams (``boundary_streams``:
     integer updates, so every sum is exact), each whole and shifted by a row
@@ -436,8 +321,7 @@ def phase_scatter(torch, dev, static, x, results, earlier=None):
     where a chunk's span fits); then at the flagship pos_pair stream (the
     corner indices of the flagship points, plain version), F = 4, 2, 1, and
     that stream permuted (no runs, full spans). Off the training path since
-    the encode backward has its own kernel. ``earlier``
-    (``earlier_kernel_a``) is timed beside the kernel."""
+    the encode backward has its own kernel."""
     from avr_torch.ops import hash_scatter as hs
     from avr_torch.ops import hashgrid_encode as he
 
@@ -453,9 +337,7 @@ def phase_scatter(torch, dev, static, x, results, earlier=None):
                 if i_t.shape[0] > 1:
                     errs.append(hold_kernel_a(torch, hs, i_t[1:], u_t[1:], n_rows,
                                               f"{name}[1:] ({size}) F={F}")["max_abs_err"])
-                out["boundary"][f"{name}_{size}_F{F}"] = {
-                    "M": i_t.shape[0], "max_abs_err": max(errs), **scatter_counts(torch, lay, i_t, n_rows),
-                }
+                out["boundary"][f"{name}_{size}_F{F}"] = {"M": i_t.shape[0], "max_abs_err": max(errs)}
 
     idx, _ = he.corners_reference(static.levels, x)
     n_rows, M = static.padded_entries, idx.shape[0]
@@ -466,21 +348,18 @@ def phase_scatter(torch, dev, static, x, results, earlier=None):
         rec = hold_kernel_a(torch, hs, idx, upd, n_rows, f"flagship F={F}")
         b_ms, b_by = bound(M * 4 + M * F * 4 + n_rows * F * 4, M * F)
         rec.update({
-            **time_kernel_a(torch, hs, idx, upd, n_rows, iters=20, earlier=earlier),
+            **time_kernel_a(torch, hs, idx, upd, n_rows, iters=20),
             "plain_ms": time_ms(lambda: hs.scatter_add_rows_reference(idx, upd, n_rows)),
             "bound_ms": b_ms, "bound_by": b_by,
         })
         out[f"F{F}"] = rec
         if F == 4:
-            results["scatter"] = rec
-            m_dense = x.shape[0] * sum(lv.K for lv in static.levels[: static.hashed.index(True)])
-            rec.update(explain_kernel_a(torch, dev, hs, idx, upd, n_rows, m_dense, iters=20))
+            results["timing"]["scatter"]["flagship"] = rec
             perm = torch.randperm(M, generator=g, device=dev)
             i_p, u_p = idx[perm].contiguous(), upd[perm].contiguous()
             rec["permuted"] = {
                 **hold_kernel_a(torch, hs, i_p, u_p, n_rows, "flagship permuted"),
-                **time_kernel_a(torch, hs, i_p, u_p, n_rows, iters=20, earlier=earlier),
-                "counts": scatter_counts(torch, hs.kernel_layout(F), i_p, n_rows),
+                **time_kernel_a(torch, hs, i_p, u_p, n_rows, iters=20),
             }
             del perm, i_p, u_p
         del upd
@@ -580,7 +459,7 @@ def phase_encode(torch, dev, cfg, static, x, results):
     )
     check(rec["partial_tiles_bit_equal"], "encode forward bf16 on partial tiles differs from the plain version")
     out.update(rec)
-    results["encode"] = rec
+    results["timing"]["encode"]["flagship"] = rec
     emit(out)
 
 
@@ -623,7 +502,7 @@ def phase_encode_bwd(torch, dev, cfg, static, x, results):
             out[tag] = rec
         if F == 4:
             main = out["F4_fp32"]
-            results["encode_bwd"] = main
+            results["timing"]["encode_bwd"]["flagship"] = main
             main["bf16_kernel_ms"] = out["F4_bf16"]["kernel_ms"]
             main["bf16_max_abs_err"] = out["F4_bf16"]["max_abs_err"]
             main["zero_fill_ms"] = time_ms(lambda: torch.zeros((n_rows, F), device=dev))
@@ -673,7 +552,7 @@ def phase_encode_bwd(torch, dev, cfg, static, x, results):
     emit(out)
 
 
-def phase_encode_array(torch, dev, fst, x, view, results, earlier=None):
+def phase_encode_array(torch, dev, fst, x, view, results):
     """The encode pair against its plain versions at the array step's two
     large streams: ``pos`` (bs·R·S ray points, F = 2, in the bf16 rule the
     step runs and in fp32) and ``dir`` (the R view directions through the
@@ -681,8 +560,7 @@ def phase_encode_array(torch, dev, fst, x, view, results, earlier=None):
     scale and bf16 bit-equal; backward within 1e-5 of scale. The backward's
     library route is ``index_add_`` of the fp32 corner update stream (the
     stream itself not timed); the generic scatter kernel is held and timed
-    on the same stream with the same iterations, ``earlier``
-    (``earlier_kernel_a``) beside it."""
+    on the same stream with the same iterations."""
     from avr_torch.ops import hash_scatter as hs
     from avr_torch.ops import hashgrid_encode as he
 
@@ -743,7 +621,7 @@ def phase_encode_array(torch, dev, fst, x, view, results, earlier=None):
         idx, upd, mul = corner_updates(torch, he, levels, xs, g)
         mul()
         iters = 5 if name == "pos" else 20
-        timed = time_kernel_a(torch, hs, idx, upd, n_rows, iters=iters, earlier=earlier)
+        timed = time_kernel_a(torch, hs, idx, upd, n_rows, iters=iters)
         for mode in modes:
             rec[f"backward_{mode}"]["library_ms"] = timed["library_ms"]
         got = hs.scatter_add_rows(idx, upd, n_rows)
@@ -751,17 +629,26 @@ def phase_encode_array(torch, dev, fst, x, view, results, earlier=None):
         scale, err = float(ref_fp32.abs().max()), float((got - ref_fp32).abs().max())
         check(err <= 1e-5 * scale, f"kernel A at the {name} stream: max|err| {err} > 1e-5 × {scale}")
         a_ms, a_by = bound(M * 4 + M * F * 4 + n_rows * F * 4, M * F)
-        m_dense = N * sum(lv.K for lv in levels[: grid.hashed.index(True)])
         rec["kernel_a_scatter"] = {
             "max_abs_err": err, "scale": scale, **timed,
             "plain_ms": time_ms(lambda: hs.scatter_add_rows_reference(idx, upd, n_rows), iters=3, warmup=1),
             "bound_ms": a_ms, "bound_by": a_by,
-            **explain_kernel_a(torch, dev, hs, idx, upd, n_rows, m_dense, iters=iters),
         }
         del idx, upd, mul, got, ref_fp32, table, g
         out[name] = rec
-    results["encode_array"] = {k: v for k, v in out.items() if k != "phase"}
+        results["timing"]["scatter"][f"array_{name}"] = rec["kernel_a_scatter"]
+        file_encode_timings(results, "array", name, rec)
     emit(out)
+
+
+def file_encode_timings(results, path: str, stream: str, rec: dict) -> None:
+    """Files an encode phase's records of one stream (``forward_{mode}``,
+    ``backward_{mode}``) under the encode pair's timings in the ``kernels``
+    line, as ``{path}_{stream}`` (fp32) and ``{path}_{stream}_bf16``."""
+    for key, kind in (("encode", "forward"), ("encode_bwd", "backward")):
+        for mode, sfx in (("fp32", ""), ("bf16", "_bf16")):
+            if f"{kind}_{mode}" in rec:
+                results["timing"][key][f"{path}_{stream}{sfx}"] = rec[f"{kind}_{mode}"]
 
 
 def phase_encode_population(torch, dev, fst, x, view, results):
@@ -851,7 +738,7 @@ def phase_encode_population(torch, dev, fst, x, view, results):
             rec[f"backward_{mode}"]["library_ms"] = lib_ms
         del idx, upd, mul, buf, tables, g
         out[name] = rec
-    results["encode_population"] = {k: v for k, v in out.items() if k != "phase"}
+        file_encode_timings(results, f"pop{K}", name, rec)
     emit(out)
 
 
@@ -903,29 +790,6 @@ def card_vs_cpu(torch, dev, cfg, dataset_type: str, box, ch_idx=None, **render_k
     }
 
 
-# The renderer's signal chunks: (K, bs, R, C, T), K None for one trial. The
-# render request's chunk is the array step's, run forward under inference_mode;
-# a rank of the data 2 × ray 2 plan holds 4 rows and 1025 rays of the array's.
-CONTRACT_SHAPES = {
-    "pop4": (POP_K, 8, 2050, 1, 1600),
-    "array": (None, 8, 2050, 1, 1600),
-    "render": (None, 8, 2050, 1, 1600),
-    "flagship": (None, 4, 650, 8, 1600),
-    "data_ray_rank": (None, 4, 1025, 1, 1600),
-}
-
-# The contraction's fp32 sums of n terms against the plain version's, in
-# another order: within CONTRACT_SUM_SIGMAS·√n·u of the sum of the terms'
-# magnitudes (u = 2^−24). Sums of terms of random sign in two orders differ
-# by about √n·u of it; the worst-case 2·γ_n (γ_n = n·u/(1 − n·u)) is ~√n/2
-# times wider and would pass a kernel that loads h in bf16.
-CONTRACT_SUM_SIGMAS = 4.0
-
-
-def contract_sum_limit(n: int, scale):
-    return CONTRACT_SUM_SIGMAS * n ** 0.5 * 2.0 ** -24 * scale
-
-
 def n_signal_chunks(cfg) -> int:
     """Signal chunks of one render of ``cfg``: one contraction launch each,
     and in a checkpointed train step one more for the recompute and one
@@ -935,52 +799,62 @@ def n_signal_chunks(cfg) -> int:
     return cfg.render.n_samples // _pick_chunk(cfg.render.n_samples, cfg.train.shell_chunk)
 
 
-def contract_inputs(torch, dev, K, bs, R, C, T, seed=0):
-    """A chunk's inputs in the recipes' ranges: compositing weights in
-    [0, 1/8), delays at 16 kHz and 343 m/s over the first 35% of T and one
-    ray in 64 past it (the clamp), the tail masks of shells over 0.2–6 m."""
-    from avr_torch.config import RenderConfig
-    from avr_torch.render.common import make_consts
+def card_test_module(name: str):
+    """``tests/{name}.py``, whose tests marked ``card`` hold a hand kernel on
+    the card: the phases that time the kernel take its shapes and inputs from
+    there. Such a file imports no JAX; the CPU thread count it sets is put
+    back."""
+    import importlib
 
-    g = torch.Generator(device=dev).manual_seed(seed)
-    lead = (bs,) if K is None else (K, bs)
-    h = torch.randn((*lead, R, C, T), generator=g, device=dev)
-    b = torch.randn((T,) if K is None else (K, T), generator=g, device=dev)
-    w = torch.rand((bs * (K or 1), R, C), generator=g, device=dev) / 8
-    # delays over the first 35% of T (rooms of up to 12 m), one ray in 64 past T − 1
-    dist = torch.rand((bs, R, C), generator=g, device=dev) * (0.35 * T * 343.0 / 16000.0)
-    dist[:, ::64] += T * 343.0 / 16000.0
-    rc = RenderConfig(xyz_min=[-3.0] * 3, xyz_max=[3.0] * 3, near=0.2, far=6.0, n_samples=4 * C,
-                      n_azi=8, n_ele=4, speed=343.0, fs=16000, pathloss=1.0)
-    tail = make_consts(rc, T, device=dev).tail_mask[C : 2 * C].contiguous()
-    return h, b, w, dist, tail, 16000.0, 343.0
+    import torch
+
+    tests = os.path.join(ROOT, "tests")
+    if tests not in sys.path:
+        sys.path.append(tests)
+    threads = torch.get_num_threads()
+    try:
+        return importlib.import_module(name)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def phase_card_tests() -> None:
+    """The hand kernels' card checks: the tests marked ``card`` of
+    CARD_TEST_FILES, run by pytest in a subprocess without the suite's
+    conftest. Fails unless every one of them passes: a failure, an error or
+    a skip (a card test that did not run) raises."""
+    import re
+
+    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p", "no:cacheprovider", "-m", "card",
+           *CARD_TEST_FILES]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=1800)
+    lines = r.stdout.strip().splitlines()
+    summary = lines[-1] if lines else ""
+    n = {k: int(v) for v, k in re.findall(r"(\d+) (passed|failed|skipped|errors?)", summary)}
+    emit({"phase": "card_tests", "files": CARD_TEST_FILES, "rc": r.returncode, "summary": summary,
+          "passed": n.get("passed", 0), "s": time.perf_counter() - t0})
+    check(r.returncode == 0 and n.get("passed", 0) > 0 and set(n) == {"passed"},
+          f"card tests: {summary}\n{r.stdout[-6000:]}{r.stderr[-2000:]}")
 
 
 def phase_signal_contract(torch, dev, results):
-    """The signal pass's mask-and-contract kernels against their plain
-    versions at the renderer's chunk shapes: y within
-    ``contract_sum_limit(R)`` of Σ_r |w·(h + b)|·head·tail, wsum within
-    ``contract_sum_limit(R)`` of itself, dw within ``contract_sum_limit(T)``,
-    dh bit-equal, the bias gradient (bs·C products summed, the products
-    bit-equal) within 2·γ_(bs·C), a second launch bit-equal; the control, the
-    kernels given h rounded to bf16, has to break the y and dw limits. Then
-    timed: the kernels (CUDA events over back-to-back calls of the wrappers,
-    and the kernels' own device time), their byte bound (what they read of
-    h: the float4s that the masks leave live; all of h beside it), the plain
-    versions and the earlier chain of PyTorch ops (``head_delay_mask`` ×
-    tail × einsum after the bias add, and its autograd backward) as the
-    library yardstick."""
+    """The signal pass's mask-and-contract kernels timed at the chunk shapes
+    and on the inputs of their card tests (``CARD_SHAPES``, ``card_inputs``
+    of tests/test_torch_signal_contract.py, which hold them against their
+    plain versions): the kernels (CUDA events over back-to-back calls of the
+    wrappers, and the kernels' own device time), their byte bound (what
+    they read of h: the float4s that the masks leave live; all of h beside
+    it), the plain versions and the earlier chain of PyTorch ops
+    (``head_delay_mask`` × tail × einsum after the bias add, and its
+    autograd backward) as the library yardstick. The array shape, a render
+    request's chunk, is timed once more through the op under
+    ``inference_mode``."""
     from avr_torch.models.mlp import per_trial
     from avr_torch.ops import signal_contract as sc
     from avr_torch.render.common import head_delay_mask
 
-    def gamma(n):
-        u = 2.0 ** -24
-        return n * u / (1 - n * u)
-
-    def over(err, limit):
-        """The largest error as a share of its limit."""
-        return float((err / limit.clamp_min(1e-30)).max())
+    tests = card_test_module("test_torch_signal_contract")
 
     def earlier(h, b, w, dist, tail, fs, speed):
         signal = h + per_trial(b, h)
@@ -988,265 +862,106 @@ def phase_signal_contract(torch, dev, results):
         return torch.einsum("brc,brct->bct", w, masked.reshape(-1, *masked.shape[-3:]))
 
     out = {"phase": "signal_contract"}
-    for name, (K, bs, R, C, T) in CONTRACT_SHAPES.items():
-        h, b, w, dist, tail, fs, speed = contract_inputs(torch, dev, K, bs, R, C, T)
-        kb = w.shape[0]
-        h_bf16 = h.bfloat16().float()
-        rec = {"K": K, "bs": bs, "R": R, "C": C, "T": T}
-        y, wsum = sc._forward_kernel(h, b, w, dist, tail, fs, speed)
-        y2, wsum2 = sc._forward_kernel(h, b, w, dist, tail, fs, speed)
-        y_c, _ = sc._forward_kernel(h_bf16, b, w, dist, tail, fs, speed)
-        ry, rw = sc.contract_reference(h, b, w, dist, tail, fs, speed)
-        sig = (h + per_trial(b, h)).abs()
-        y_limit = contract_sum_limit(R, sc.contract_reference(sig, None, w, dist, tail, fs, speed)[0])
-        torch.cuda.synchronize()
-        check(torch.equal(y, y2) and torch.equal(wsum, wsum2), f"contract {name}: two forward launches differ")
-        rec["fwd_err_over_limit"] = over((y - ry).abs(), y_limit)
-        rec["fwd_bf16_control_over_limit"] = over((y_c - ry).abs(), y_limit)
-        rec["wsum_err_over_limit"] = over((wsum - rw).abs(), contract_sum_limit(R, rw))
-        rec["fwd_max_abs_err"] = float((y - ry).abs().max())
-        check(rec["fwd_err_over_limit"] <= 1, f"contract {name}: y off the plain version")
-        check(rec["wsum_err_over_limit"] <= 1, f"contract {name}: wsum off the plain version")
-        check(rec["fwd_bf16_control_over_limit"] > 1, f"contract {name}: y from h in bf16 passes the limit")
-        del ry, rw, y_limit, y_c
+    for name, (K, bs, R, C, T) in tests.CARD_SHAPES.items():
+        args = tests.card_inputs(dev, K, bs, R, C, T)
+        h, b, w, dist, tail, fs, speed = args
+        y, wsum = sc._forward_kernel(*args)
+        g = torch.randn(y.shape, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+        bwd_args = (g, h, b, w, dist, tail, wsum, fs, speed)
         # the float4s the masks leave live: what the kernels load of h
         head = head_delay_mask(dist, fs, speed, T).reshape(bs, R, C, T // 4, 4).bool().any(-1)
         live = float((head & (tail.reshape(C, T // 4, 4) != 0).any(-1)).float().mean())
         h_bytes = 4 * h.numel()
         small = 4 * (w.numel() + dist.numel() + tail.numel() + b.numel())
-        rec["live_share"] = live
-        rec["fwd_bound_ms"] = bound(live * h_bytes + small + 2 * 4 * y.numel(), 3 * h.numel())[0]
-        rec["fwd_all_h_bound_ms"] = bound(h_bytes + small + 2 * 4 * y.numel(), 3 * h.numel())[0]
-        rec["fwd_ms"] = time_ms(lambda: sc._forward_kernel(h, b, w, dist, tail, fs, speed))
-        rec["fwd_kernel_device_ms"] = device_ms(
-            lambda: sc._forward_kernel(h, b, w, dist, tail, fs, speed), key="signal_contract")
-        rec["fwd_plain_ms"] = time_ms(lambda: sc.contract_reference(h, b, w, dist, tail, fs, speed), iters=5)
-        rec["fwd_library_ms"] = time_ms(lambda: earlier(h, b, w, dist, tail, fs, speed), iters=5)
-        if name == "render":
+        fwd = {
+            "bound_ms": bound(live * h_bytes + small + 2 * 4 * y.numel(), 3 * h.numel())[0],
+            "all_h_bound_ms": bound(h_bytes + small + 2 * 4 * y.numel(), 3 * h.numel())[0],
+            "ms": time_ms(lambda: sc._forward_kernel(*args)),
+            "kernel_device_ms": device_ms(lambda: sc._forward_kernel(*args), key="signal_contract"),
+            "plain_ms": time_ms(lambda: sc.contract_reference(*args), iters=5),
+            "library_ms": time_ms(lambda: earlier(*args), iters=5),
+        }
+        if name == "array":
             with torch.inference_mode():
-                rec["fwd_inference_ms"] = time_ms(lambda: sc.signal_contract(h, b, w, dist, tail, fs, speed))
-            out[name] = rec
-            continue
-
-        g = torch.randn((kb, C, T), generator=torch.Generator(device=dev).manual_seed(3), device=dev)
-        dh, dw, db = sc._backward_kernel(g, h, b, w, dist, tail, wsum, fs, speed)
-        dh2, dw2, db2 = sc._backward_kernel(g, h, b, w, dist, tail, wsum, fs, speed)
-        _, dw_c, _ = sc._backward_kernel(g, h_bf16, b, w, dist, tail, wsum, fs, speed)
-        rdh, rdw, rdb = sc.contract_backward_reference(g, h, b, w, dist, tail, wsum, fs, speed)
-        torch.cuda.synchronize()
-        check(torch.equal(dh, dh2) and torch.equal(dw, dw2) and torch.equal(db, db2),
-              f"contract {name}: two backward launches differ")
-        check(torch.equal(dh, rdh), f"contract {name}: dh differs from the plain version")
-        _, dw_scale, _ = sc.contract_backward_reference(g.abs(), sig, None, w, dist, tail, wsum, fs, speed)
-        dw_limit = contract_sum_limit(T, dw_scale)
-        rec["dw_err_over_limit"] = over((dw - rdw).abs(), dw_limit)
-        rec["dw_bf16_control_over_limit"] = over((dw_c - rdw).abs(), dw_limit)
-        rec["db_err_over_limit"] = over(
-            (db - rdb).abs(), 2 * gamma(bs * C) * sc._bias_grad((tail * g).abs(), wsum, b))
-        check(rec["dw_err_over_limit"] <= 1, f"contract {name}: dw off the plain version")
-        check(rec["db_err_over_limit"] <= 1, f"contract {name}: the bias gradient off the plain version")
-        check(rec["dw_bf16_control_over_limit"] > 1, f"contract {name}: dw from h in bf16 passes the limit")
-        del dh, dh2, rdh, sig, dw_scale, dw_limit, dw_c, h_bf16
-        rec["bwd_bound_ms"] = bound((1 + live) * h_bytes + small + 4 * (g.numel() + w.numel()), 4 * h.numel())[0]
-        rec["bwd_all_h_bound_ms"] = bound(2 * h_bytes + small + 4 * (g.numel() + w.numel()), 4 * h.numel())[0]
-        rec["bwd_ms"] = time_ms(lambda: sc._backward_kernel(g, h, b, w, dist, tail, wsum, fs, speed))
-        rec["bwd_kernel_device_ms"] = device_ms(
-            lambda: sc._backward_kernel(g, h, b, w, dist, tail, wsum, fs, speed), key="signal_contract")
-        rec["bwd_plain_ms"] = time_ms(
-            lambda: sc.contract_backward_reference(g, h, b, w, dist, tail, wsum, fs, speed), iters=5)
+                fwd["inference_ms"] = time_ms(lambda: sc.signal_contract(*args))
         leaves = [t.detach().requires_grad_(True) for t in (h, b, w)]
-        y_lib = earlier(leaves[0], leaves[1], leaves[2], dist, tail, fs, speed)
-        rec["bwd_library_ms"] = time_ms(
-            lambda: torch.autograd.grad(y_lib, leaves, g, retain_graph=True), iters=5)
-        del y_lib, leaves
-        out[name] = rec
+        y_lib = earlier(*leaves, dist, tail, fs, speed)
+        bwd = {
+            "bound_ms": bound((1 + live) * h_bytes + small + 4 * (g.numel() + w.numel()), 4 * h.numel())[0],
+            "all_h_bound_ms": bound(2 * h_bytes + small + 4 * (g.numel() + w.numel()), 4 * h.numel())[0],
+            "ms": time_ms(lambda: sc._backward_kernel(*bwd_args)),
+            "kernel_device_ms": device_ms(lambda: sc._backward_kernel(*bwd_args), key="signal_contract"),
+            "plain_ms": time_ms(lambda: sc.contract_backward_reference(*bwd_args), iters=5),
+            "library_ms": time_ms(lambda: torch.autograd.grad(y_lib, leaves, g, retain_graph=True), iters=5),
+        }
+        out[name] = {"K": K, "bs": bs, "R": R, "C": C, "T": T, "live_share": live, "fwd": fwd, "bwd": bwd}
+        results["timing"]["contract"][name] = fwd
+        results["timing"]["contract_bwd"][name] = bwd
+        del args, bwd_args, h, y_lib, leaves, g
         torch.cuda.empty_cache()
-    results["contract"] = {k: v for k, v in out.items() if k != "phase"}
     emit(out)
 
 
-# The recipes' hidden layers for the mlp_act phase: (K, B, R, C, W, context,
-# bias, ch_num); K None is one trial. "render" is the array signal network's
-# first layer under inference_mode (no mask).
-MLP_ACT_SHAPES = {
-    "pop4_signal0": (4, 8, 2050, 1, 512, True, False, 8),
-    "pop4_signal": (4, 8, 2050, 1, 512, False, True, 8),
-    "array_signal0": (None, 8, 2050, 1, 512, True, False, 8),
-    "array_signal": (None, 8, 2050, 1, 512, False, True, 8),
-    "render_signal0": (None, 8, 2050, 1, 512, True, False, 8),
-    "flagship_signal0": (None, 4, 650, 8, 512, True, False, 0),
-    "flagship_signal": (None, 4, 650, 8, 512, False, True, 0),
-    "pop4_sigma_encoder": (4, 8, 131200, 1, 128, False, True, 8),
-    "pop4_sigma_decoder": (4, 1, 1049600, 1, 128, False, True, 0),
-    "flagship_signal0_C32": (None, 4, 650, 32, 512, True, False, 0),  # shell_chunk 32
-    "pop4_signal0_C3": (4, 8, 2050, 3, 512, True, False, 8),  # a chunk that no power of two divides
-}
-
-# The backward's fp32 sums (bias, embedding, h_ray, h_batch) against the exact
-# (fp64) sum of their terms: within MLP_SUM_C·√n·u·‖terms‖₂, n the terms an
-# element adds, ‖·‖₂ the root of their sum of squares (u = 2^−24). A sum of
-# terms of random sign rounds to about √n·u·‖terms‖₂ in any order; the worst
-# reading on the card is 2.7 of it, at h_ray's 8 terms. On contract_sum_limit's
-# scale, √n·u·Σ|terms|, the sound h_ray sums read up to 1.4 while g summed in
-# bf16 reads far below that at the median element of the sigma MLPs' bias
-# sums of ~2^19 terms: no one constant holds both (PERF.md §6).
-MLP_SUM_C = 8.0
-
-
-def mlp_sum_errors(torch, ma, got, g, mask, args):
-    """Each sum of ``got`` (act_backward's tuple) against the exact sum:
-    {sum: (largest error, median error over the elements that add a term)}
-    as shares of MLP_SUM_C·√n·u·‖terms‖₂, and the same two as shares of
-    √n·u·Σ|terms|."""
-    g64 = g.double()
-    ref, sq, ab, n = (ma.act_backward_reference(x, mask, *args, out_dtype=torch.float64)[1:]
-                      for x in (g64, g64 * g64, g64.abs(), torch.ones_like(g64)))
-    del g64
-    l2, l1 = {}, {}
-    for name, a, r, q, m, c in zip(("bias", "emb", "h_ray", "h_batch"), got[1:], ref, sq, ab, n):
-        if r is None:
-            continue
-        err = (a.double() - r).abs()
-        ratios = []
-        for lim in (MLP_SUM_C * c.sqrt() * 2.0 ** -24 * q.sqrt(), c.sqrt() * 2.0 ** -24 * m):
-            ratios.append(torch.where(lim > 0, err / lim.clamp_min(1e-300), torch.where(err > 0, float("inf"), 0.0)))
-        l2[name] = (float(ratios[0].max()), float(ratios[0][c > 0].median()))
-        l1[name] = (float(ratios[1].max()), float(ratios[1][c > 0].median()))
-    return l2, l1
-
-
-def mlp_act_inputs(torch, dev, K, B, R, C, W, context, bias, ch_num, seed=0):
-    """P [M, W] and the layer's tables, N(0, 1) as the recipes' products are."""
-    g = torch.Generator(device=dev).manual_seed(seed)
-    K1 = K or 1
-    kk = () if K is None else (K,)
-    p = torch.randn((K1 * B * R * C, W), generator=g, device=dev)
-    t = {}
-    if context:
-        t["h_ray"] = torch.randn((*kk, R, W), generator=g, device=dev)
-        t["h_batch"] = torch.randn((*kk, B, W), generator=g, device=dev)
-    if bias:
-        t["bias"] = torch.randn((*kk, W), generator=g, device=dev)
-    if ch_num:
-        t["emb"] = torch.randn((*kk, ch_num, W), generator=g, device=dev)
-        t["ch"] = (torch.arange(B, device=dev) * 5 + 3) % ch_num
-    return p, t
-
-
 def phase_mlp_act(torch, dev, results):
-    """The MLPs' hidden-layer chain kernels against their plain versions at
-    the recipes' layer shapes and two other shell chunks: A and the mask
-    bit-equal (the same fp32 adds in the same order), g_pre bit-equal, each
-    fp32 sum (bias, embedding by channel, h_ray, h_batch) within
-    ``MLP_SUM_C``·√n·u·‖terms‖₂ of the exact sum, and a second launch
-    bit-equal; the controls, P rounded to bf16 before the adds, g rounded to
-    bf16 before the sums, and sums left at zero, break the bit-equality and
-    every sum's limit at every shape. Then timed (CUDA events over
-    back-to-back wrapper calls, and the kernels' own device time) beside the
-    byte bound at 3.35 TB/s, the plain versions and the eager chain (the
-    adds, ReLU and cast; autograd's backward of them and the cast of g_pre)
-    as the library yardstick."""
+    """The MLPs' hidden-layer chain kernels timed at the layer shapes and on
+    the inputs of their card tests (``CARD_SHAPES``, ``card_case`` of
+    tests/test_torch_mlp_act.py, which hold them against their plain
+    versions): CUDA events over back-to-back wrapper calls and the kernels'
+    own device time, beside the byte bound at 3.35 TB/s, the plain versions
+    and the eager chain (``eager``: the adds, ReLU and cast; autograd's
+    backward of them and the cast of g_pre) as the library yardstick. The
+    array signal network's first layer, a render request's, is timed once
+    more without a mask under ``inference_mode``."""
     from avr_torch.ops import mlp_act as ma
 
-    def unpack(mask):
-        bits = torch.tensor([1 << i for i in range(8)], dtype=torch.uint8, device=mask.device)
-        return ((mask[..., None] & bits) != 0).reshape(mask.shape[0], -1)
-
-    def fwd(fn, p, lay, t, **kw):
-        return fn(p, lay, t.get("bias"), t.get("emb"), t.get("ch"), t.get("h_ray"), t.get("h_batch"), **kw)
-
-    def eager(p, t, lay):
-        K, B, R, C = lay
-        W = p.shape[-1]
-        h = p.reshape(K, B, R, C, W)
-        if "h_ray" in t:  # the renderer's earlier h_extra
-            h = h + (t["h_ray"].reshape(K, 1, R, 1, W) + t["h_batch"].reshape(K, B, 1, 1, W))
-        if "bias" in t:
-            h = h + t["bias"].reshape(K, 1, 1, 1, W)
-        if "emb" in t:
-            h = h + t["emb"].reshape(K, -1, W)[:, t["ch"]].reshape(K, B, 1, 1, W)
-        return torch.relu(h)
-
+    tests = card_test_module("test_torch_mlp_act")
     out = {"phase": "mlp_act"}
-    for name, (K, B, R, C, W, context, bias, ch_num) in MLP_ACT_SHAPES.items():
-        p, t = mlp_act_inputs(torch, dev, K, B, R, C, W, context, bias, ch_num)
-        lay = ma.Layout(K or 1, B, R, C)
+    for name, (K, B, R, C, W, context, bias, ch_num) in tests.CARD_SHAPES.items():
+        p, lay, t, _ = tests.card_case(dev, name)
         M = p.shape[0]
-        rec = {"K": K, "B": B, "R": R, "C": C, "W": W, "context": context, "bias": bias, "ch_num": ch_num}
-        infer = name.startswith("render")
-        a, mask = fwd(ma._forward_kernel, p, lay, t, want_mask=not infer)
-        a2, mask2 = fwd(ma._forward_kernel, p, lay, t, want_mask=not infer)
-        a_c, _ = fwd(ma._forward_kernel, p.bfloat16().float(), lay, t)
-        ra, rmask = fwd(ma.act_reference, p, lay, t)
-        torch.cuda.synchronize()
-        check(torch.equal(a, a2) and (infer or torch.equal(mask, mask2)), f"mlp_act {name}: two launches differ")
-        check(torch.equal(a, ra), f"mlp_act {name}: A differs from the plain version")
-        check(infer or torch.equal(unpack(mask), rmask), f"mlp_act {name}: the mask differs from the plain version")
-        rec["fwd_bf16_control_differing"] = int((a_c != ra).sum())
-        check(rec["fwd_bf16_control_differing"] > 0, f"mlp_act {name}: P in bf16 gives the same A")
-        rec["relu_live_share"] = float(rmask.float().mean())
+        _, rmask = tests._fwd(ma.act_reference, p, lay, t)
+        _, mask = tests._fwd(ma._forward_kernel, p, lay, t)
+        rec = {"K": K, "B": B, "R": R, "C": C, "W": W, "context": context, "bias": bias, "ch_num": ch_num,
+               "relu_live_share": float(rmask.float().mean())}
         table_bytes = 4 * sum(v.numel() for k, v in t.items() if k != "ch")
-        rec["fwd_bound_ms"] = bound(M * W * (4 + 2 + (0 if infer else 1 / 8)) + table_bytes, 3 * M * W)[0]
-        rec["fwd_ms"] = time_ms(lambda: fwd(ma._forward_kernel, p, lay, t, want_mask=not infer))
-        rec["fwd_kernel_device_ms"] = device_ms(
-            lambda: fwd(ma._forward_kernel, p, lay, t, want_mask=not infer), key="mlp_act")
-        rec["fwd_plain_ms"] = time_ms(lambda: fwd(ma.act_reference, p, lay, t), iters=5)
-        rec["fwd_library_ms"] = time_ms(lambda: eager(p, t, lay).to(torch.bfloat16), iters=5)
-        del a2, mask2, a_c
-        if infer:
+        p5 = p.reshape(*((B, R, C) if K is None else (K, B, R, C)), W)
+        fwd = {
+            "bound_ms": bound(M * W * (4 + 2 + 1 / 8) + table_bytes, 3 * M * W)[0],
+            "ms": time_ms(lambda: tests._fwd(ma._forward_kernel, p, lay, t)),
+            "kernel_device_ms": device_ms(lambda: tests._fwd(ma._forward_kernel, p, lay, t), key="mlp_act"),
+            "plain_ms": time_ms(lambda: tests._fwd(ma.act_reference, p, lay, t), iters=5),
+            "library_ms": time_ms(lambda: tests.eager(p5, t).to(torch.bfloat16), iters=5),
+        }
+        if name == "array_signal0":
             with torch.inference_mode():
-                rec["fwd_inference_ms"] = time_ms(lambda: fwd(ma._forward_kernel, p, lay, t, want_mask=False))
-            out[name] = rec
-            continue
+                fwd["inference_ms"] = time_ms(lambda: tests._fwd(ma._forward_kernel, p, lay, t, want_mask=False))
 
         g = torch.randn(p.shape, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
         args = (lay, t.get("ch"), ch_num, bias, context)
-        got = ma._backward_kernel(g, mask, *args)
-        again = ma._backward_kernel(g, mask, *args)
-        got32 = ma._backward_kernel(g, mask, *args, out_dtype=torch.float32)
-        ctl = ma._backward_kernel(g.bfloat16().float(), mask, *args)
-        ref = ma.act_backward_reference(g, rmask, *args, out_dtype=torch.float32)
-        torch.cuda.synchronize()
-        check(all((x is None and y is None) or torch.equal(x, y) for x, y in zip(got, again)),
-              f"mlp_act {name}: two backward launches differ")
-        check(torch.equal(got[0], ref[0].to(torch.bfloat16)) and torch.equal(got32[0], ref[0]),
-              f"mlp_act {name}: g_pre differs from the plain version")
-        del again, got32, ref
-        zero = [None] + [None if x is None else torch.zeros_like(x) for x in got[1:]]
-        for key, sums in (("sum", got), ("sum_bf16_control", ctl), ("sum_zero_control", zero)):
-            l2, l1 = mlp_sum_errors(torch, ma, sums, g, rmask, args)
-            rec[f"{key}_err_over_limit"] = l2
-            rec[f"{key}_err_over_l1_scale"] = l1
-        rec["plain_sum_err_over_limit"] = mlp_sum_errors(
-            torch, ma, ma.act_backward_reference(g, rmask, *args, out_dtype=torch.float32), g, rmask, args)[0]
-        errs, ctl_errs, zero_errs = (rec[f"{k}_err_over_limit"] for k in ("sum", "sum_bf16_control", "sum_zero_control"))
-        check(errs and max(e for e, _ in [*errs.values(), *rec["plain_sum_err_over_limit"].values()]) <= 1,
-              f"mlp_act {name}: sums off the exact sums {errs}")
-        # each control breaks every sum's limit at its median element, not only at a few
-        check(min(m for _, m in [*ctl_errs.values(), *zero_errs.values()]) > 1,
-              f"mlp_act {name}: a control passes a sum's limit {ctl_errs} {zero_errs}")
-        del ctl, zero
         plan = ma.backward_plan(lay, W, context, torch.cuda.get_device_properties(dev).multi_processor_count)
         partial = 4 * lay.K * B * plan["n_tiles"] * W
         sums = 4 * W * lay.K * ((B if context else 0) + (R if context else 0) + (1 if bias else 0) + ch_num)
-        rec["bwd_plan"] = plan
-        rec["bwd_bound_ms"] = bound(M * W * (4 + 1 / 8 + 2) + 2 * partial + sums, 2 * M * W)[0]
-        rec["bwd_ms"] = time_ms(lambda: ma._backward_kernel(g, mask, *args))
-        rec["bwd_kernel_device_ms"] = device_ms(lambda: ma._backward_kernel(g, mask, *args), key="mlp_act")
-        rec["bwd_plain_ms"] = time_ms(lambda: ma.act_backward_reference(g, rmask, *args), iters=5)
         leaves = {k: v.detach().requires_grad_(True) for k, v in t.items() if k != "ch"}
-        p_l = p.detach().requires_grad_(True)
-        y_lib = eager(p_l, {**t, **leaves}, lay)
+        p_l = p5.detach().requires_grad_(True)
+        y_lib = tests.eager(p_l, {**t, **leaves})
 
         def library_bwd():
             grads = torch.autograd.grad(y_lib, [p_l, *leaves.values()], g.reshape(y_lib.shape), retain_graph=True)
             return grads[0].to(torch.bfloat16)
 
-        rec["bwd_library_ms"] = time_ms(library_bwd, iters=5)
-        del y_lib, leaves, p_l, got
-        out[name] = rec
+        bwd = {
+            "plan": plan,
+            "bound_ms": bound(M * W * (4 + 1 / 8 + 2) + 2 * partial + sums, 2 * M * W)[0],
+            "ms": time_ms(lambda: ma._backward_kernel(g, mask, *args)),
+            "kernel_device_ms": device_ms(lambda: ma._backward_kernel(g, mask, *args), key="mlp_act"),
+            "plain_ms": time_ms(lambda: ma.act_backward_reference(g, rmask, *args), iters=5),
+            "library_ms": time_ms(library_bwd, iters=5),
+        }
+        out[name] = {**rec, "fwd": fwd, "bwd": bwd}
+        results["timing"]["mlp_act"][name] = fwd
+        results["timing"]["mlp_act_bwd"][name] = bwd
+        del y_lib, leaves, p_l, p5, p, g, mask, rmask
         torch.cuda.empty_cache()
-    results["mlp_act"] = {k: v for k, v in out.items() if k != "phase"}
     emit(out)
 
 
@@ -1366,14 +1081,8 @@ def phase_train(torch, dev, profile_dir, results):
     state, step_ms, bundles, launches, peak = drive_steps(torch, dev, step, state, [batch] * TRAIN_STEPS, gen)
     # five encodes per step (pos_pair, dir, tx_pos, tx_dir, tx_pos_sig), each
     # one forward and one backward launch; the generic scatter is off the path
-    for k in ("encode", "encode_bwd"):
-        check(launches[k] == 5 * TRAIN_STEPS, f"kernel {k}: {launches[k]} launches in {TRAIN_STEPS} steps")
-    # the signal chunks' contraction: forward and recompute, and one backward each
-    n_c = n_signal_chunks(cfg)
-    for k, per in (("contract", 2 * n_c), ("contract_bwd", n_c)):
-        check(launches[k] == per * TRAIN_STEPS, f"kernel {k}: {launches[k]} launches in {TRAIN_STEPS} steps")
-    for k, n in {**mlp_counts(cfg, steps=TRAIN_STEPS), **split_counts(cfg, steps=TRAIN_STEPS)}.items():
-        check(launches[k] == n, f"{k}: {launches[k]} in {TRAIN_STEPS} steps, want {n}")
+    want = path_counts(cfg, encodes=5, steps=TRAIN_STEPS)
+    check(launches == want, f"{TRAIN_STEPS} flagship steps: launches {launches}, want {want}")
     results["launches"] = launches
     rec = train_record("train_flagship", cfg, step_ms, bundles, launches, peak)
     results["flagship_steady_ms"] = rec["steady_ms_per_step"]
@@ -1437,14 +1146,8 @@ def phase_train_array(torch, dev, profile_dir, results):
     step, _ = make_train_step(fst, consts, rc, tc, crit)
     run = [batches[i % len(batches)] for i in range(TRAIN_STEPS)]
     state, step_ms, bundles, launches, peak = drive_steps(torch, dev, step, state, run, gen)
-    for k in ("encode", "encode_bwd"):
-        check(launches[k] == 3 * TRAIN_STEPS, f"kernel {k}: {launches[k]} launches in {TRAIN_STEPS} steps")
-    n_c = n_signal_chunks(cfg)
-    for k, per in (("contract", 2 * n_c), ("contract_bwd", n_c)):
-        check(launches[k] == per * TRAIN_STEPS, f"kernel {k}: {launches[k]} launches in {TRAIN_STEPS} steps")
-    for k, n in {**mlp_counts(cfg, steps=TRAIN_STEPS), **split_counts(cfg, steps=TRAIN_STEPS)}.items():
-        check(launches[k] == n, f"{k}: {launches[k]} in {TRAIN_STEPS} steps, want {n}")
-    check(launches["scatter"] == 0, f"kernel A: {launches['scatter']} launches")
+    want = path_counts(cfg, encodes=3, steps=TRAIN_STEPS)
+    check(launches == want, f"{TRAIN_STEPS} array steps: launches {launches}, want {want}")
     check(all(b["das_reg"] > 0 for b in bundles), "the DAS regression term is zero")
     results["array_launches"] = launches
     rec = train_record("train_array", cfg, step_ms, bundles, launches, peak, points=points,
@@ -1478,17 +1181,27 @@ def phase_train_array(torch, dev, profile_dir, results):
                       predicted_launches=expected))
 
 
-# the keys of the ``kernels`` line → the wrappers' launch counters in
-# ``avr_torch.utils.profiling``; ``*_pop`` are the K-trial wrappers of the
-# same two encode kernels; ``contract*`` the signal pass's kernels (K folded);
-# ``mlp_act*`` the MLPs' hidden-layer chain (one call per hidden layer);
-# beside them ``feature_splits``, the renders that split their precomputed
+# The port's hand kernels: name, source in avr_torch/ops/csrc, the TPU code it
+# replaces, and its launch counters in ``avr_torch.utils.profiling`` by the
+# keys of ``launch_counts`` (``*_pop``: the K-trial wrappers of the same encode
+# kernels). The first key names the kernel's timings in the ``kernels`` line.
+_CONTRACT_TPU = "avr_tpu/render/fused.py:47 _ray_contract, XLA's fusion of spectrum_accumulate (:272)"
+_MLP_ACT_TPU = "XLA's fusion of the adds, ReLU and convert around avr_tpu/models/mlp.py _matmul_cd"
+KERNELS = (
+    ("hash_scatter_add_rows", "hash_scatter.cu", "avr_tpu/ops/hash_scatter.py:872", {"scatter": "scatter.launches"}),
+    ("hashgrid_encode_fwd", "hashgrid_encode.cu", "avr_tpu/models/hashgrid.py:434",
+     {"encode": "encode.fwd_launches", "encode_pop": "encode.fwd_pop_launches"}),
+    ("hashgrid_encode_bwd", "hashgrid_encode_bwd.cu", "avr_tpu/ops/hash_scatter.py:872",
+     {"encode_bwd": "encode.bwd_launches", "encode_bwd_pop": "encode.bwd_pop_launches"}),
+    ("signal_contract_fwd", "signal_contract.cu", _CONTRACT_TPU, {"contract": "contract.fwd_launches"}),
+    ("signal_contract_bwd", "signal_contract.cu", _CONTRACT_TPU, {"contract_bwd": "contract.bwd_launches"}),
+    ("mlp_act_fwd", "mlp_act.cu", _MLP_ACT_TPU, {"mlp_act": "mlp_act.fwd_launches"}),
+    ("mlp_act_bwd", "mlp_act.cu", _MLP_ACT_TPU, {"mlp_act_bwd": "mlp_act.bwd_launches"}),
+)
+# beside them ``feature_splits``: the renders that split their precomputed
 # per-point tensors into the shell chunks (no launch)
-LAUNCH_COUNTERS = {"scatter": "scatter.launches", "encode": "encode.fwd_launches",
-                   "encode_bwd": "encode.bwd_launches", "encode_pop": "encode.fwd_pop_launches",
-                   "encode_bwd_pop": "encode.bwd_pop_launches", "contract": "contract.fwd_launches",
-                   "contract_bwd": "contract.bwd_launches", "mlp_act": "mlp_act.fwd_launches",
-                   "mlp_act_bwd": "mlp_act.bwd_launches", "feature_splits": "render.feature_splits"}
+LAUNCH_COUNTERS = {**{k: c for *_, keys in KERNELS for k, c in keys.items()},
+                   "feature_splits": "render.feature_splits"}
 
 
 def launch_counts():
@@ -1536,6 +1249,20 @@ def split_counts(cfg, steps: int = 0, renders: int = 0, streaming: bool = False)
     plan."""
     split = not streaming and n_signal_chunks(cfg) > 1
     return {"feature_splits": steps + renders if split else 0}
+
+
+def path_counts(cfg, encodes: int, steps: int = 0, renders: int = 0, pop: bool = False) -> dict:
+    """The launch counts of ``steps`` train steps and ``renders`` render
+    batches of ``cfg`` in the precomputed plan: ``encodes`` encode forwards
+    a step or render batch and as many backwards a step (through the K-trial
+    wrappers with ``pop``), the contraction once per signal chunk and again
+    in a checkpointed step's recompute with one backward per chunk a step,
+    ``mlp_counts`` and ``split_counts``; no other launch."""
+    n_c, remat = n_signal_chunks(cfg), 2 if cfg.train.remat else 1
+    sfx = "_pop" if pop else ""
+    return counts(**{f"encode{sfx}": encodes * (steps + renders), f"encode_bwd{sfx}": encodes * steps},
+                  contract=n_c * (remat * steps + renders), contract_bwd=n_c * steps,
+                  **mlp_counts(cfg, steps=steps, renders=renders), **split_counts(cfg, steps=steps, renders=renders))
 
 
 def reset_launch_counts() -> None:
@@ -1628,7 +1355,6 @@ def check_runner_run(runner, launches, vals, encodes: int, npz_keys=()) -> dict:
 
     tc, T = runner.cfg.train, runner.cfg.model.signal_output_dim
     bs, n_test, n_train = runner.batch_size, len(runner.test_data), len(runner.train_data)
-    n_c = n_signal_chunks(runner.cfg)
     check(int(runner.state.step) == RUNNER_ITERATIONS, f"runner step {int(runner.state.step)}")
     check(runner.checkpoint_steps() == [2, 4], f"checkpoints {runner.checkpoint_steps()}")
     m = read_jsonl(os.path.join(runner.logdir, "metrics.jsonl"))
@@ -1648,15 +1374,11 @@ def check_runner_run(runner, launches, vals, encodes: int, npz_keys=()) -> dict:
     for v in vals:
         n_rows = n_test if v["mode"] == "test" else min(n_train, runner_lib.TRAIN_VAL_BATCHES * bs)
         n_b = -(-n_rows // bs)
-        want = counts(encode=encodes * n_b, contract=n_c * n_b, **mlp_counts(runner.cfg, renders=n_b),
-                      **split_counts(runner.cfg, renders=n_b))
+        want = path_counts(runner.cfg, encodes, renders=n_b)
         check(v["launches"] == want, f"validate {v['mode']}@{v['it']}: launches {v['launches']} != {want}")
         v["batches"] = n_b
     train_launch = {k: launches[k] - val_launch[k] for k in launches}
-    want = counts(encode=encodes * RUNNER_ITERATIONS, encode_bwd=encodes * RUNNER_ITERATIONS,
-                  contract=n_c * (2 if tc.remat else 1) * RUNNER_ITERATIONS, contract_bwd=n_c * RUNNER_ITERATIONS,
-                  **mlp_counts(runner.cfg, steps=RUNNER_ITERATIONS),
-                  **split_counts(runner.cfg, steps=RUNNER_ITERATIONS))
+    want = path_counts(runner.cfg, encodes, steps=RUNNER_ITERATIONS)
     check(train_launch == want, f"training iterations' launches {train_launch} != {want}")
 
     sps = m["samples_per_sec"]
@@ -1716,8 +1438,7 @@ def check_render_cli(torch, dev, tmp, runner, resumed, encodes: int, keys=()):
     check(np.array_equal(spec, ref), f"render CLI differs from make_render_fn: max {np.abs(spec - ref).max()}")
     check(ir.shape == (n_test, T) and np.isfinite(ir).all(), f"render ir {ir.shape}")
     n_b = -(-n_test // bs)
-    want = counts(encode=encodes * n_b, contract=n_signal_chunks(runner.cfg) * n_b,
-                  **mlp_counts(runner.cfg, renders=n_b), **split_counts(runner.cfg, renders=n_b))
+    want = path_counts(runner.cfg, encodes, renders=n_b)
     check(render_launch == want, f"render launches {render_launch} != {want}")
     t0 = time.perf_counter()
     for _ in range(RENDER_REPEATS):
@@ -1785,12 +1506,7 @@ def phase_runner_array(torch, dev, cfg, results) -> None:
             rot_pred, n_rot = z["pred_sig"], len(z["pred_deg"])
         check(os.path.exists(os.path.join(rot_dir, "summary.csv")) and np.isfinite(rot_pred).all(),
               "rotate outputs")
-        check(rotate_launch["encode"] == 3 * n_rot and rotate_launch["encode_bwd"] == 0
-              and rotate_launch["contract"] == n_signal_chunks(cfg) * n_rot and rotate_launch["contract_bwd"] == 0
-              and rotate_launch["mlp_act"] == mlp_counts(cfg, renders=n_rot)["mlp_act"]
-              and rotate_launch["mlp_act_bwd"] == 0
-              and rotate_launch["feature_splits"] == split_counts(cfg, renders=n_rot)["feature_splits"],
-              f"rotate launches {rotate_launch} for {n_rot} rotations")
+        check(rotate_launch == path_counts(cfg, 3, renders=n_rot), f"rotate launches {rotate_launch} for {n_rot} rotations")
 
         rec = {
             "phase": "runner_array", **run, "train_s": train_s,
@@ -2006,6 +1722,13 @@ def phase_runner_flagship(torch, dev, results) -> None:
     emit(rec)
 
 
+def seed_trial() -> dict:
+    """The known-good seed trial of the array recipe's runtime-variant study,
+    as the benchmark's population traffic holds it."""
+    with open(POP_TRAFFIC) as f:
+        return json.load(f)["trials"]["seed_trial"]
+
+
 def population_trials(cfg):
     """POP_K runtime-variant trials of the array recipe ``cfg``: the known-good
     seed trial and POP_K − 1 asked from a fresh study, as configs."""
@@ -2013,7 +1736,7 @@ def population_trials(cfg):
     from avr_torch.hpo.study import Study
 
     study = Study("population_array", n_startup=4)
-    study.enqueue_trial(SEED_TRIAL)
+    study.enqueue_trial(seed_trial())
     return [update_config(cfg, 0, t.number, t, "runtime") for t in (study.ask() for _ in range(POP_K))]
 
 
@@ -2101,7 +1824,7 @@ def phase_population_array(torch, dev, profile_dir, results):
     tc, rc = tcfgs[0].train, cfg.render
     hps = [make_hparams(c.train, dev) for c in tcfgs]
     lrs = [c.train.lr for c in tcfgs]
-    check(len(set(lrs)) == POP_K and lrs[0] == SEED_TRIAL["lr"], f"trial learning rates {lrs}")
+    check(len(set(lrs)) == POP_K and lrs[0] == seed_trial()["lr"], f"trial learning rates {lrs}")
     batches, data_rec = array_batches(torch, dev, cfg)
     fst = field.build_field(cfg.model, cfg.path.dataset_type)
     consts = make_consts(rc, cfg.model.signal_output_dim, device=dev)
@@ -2129,11 +1852,8 @@ def phase_population_array(torch, dev, profile_dir, results):
         launches = launch_counts()
         peaks.append(torch.cuda.max_memory_allocated(dev))
         per_step.append(launches)
-        n_c = n_signal_chunks(cfg)
-        check(launches == counts(encode_pop=3, encode_bwd_pop=3, contract=2 * n_c, contract_bwd=n_c,
-                                 **mlp_counts(cfg, steps=1), **split_counts(cfg, steps=1)),
-              f"population step {i}: launches {launches}, want 3 + 3 of the K-trial encodes and "
-              f"{2 * n_c} + {n_c} contractions")
+        want = path_counts(cfg, 3, steps=1, pop=True)
+        check(launches == want, f"population step {i}: launches {launches}, want {want}")
         vals = {k: v.tolist() for k, v in bundle.as_dict().items()}
         bundles.append(vals)
         for name, v in vals.items():
@@ -2245,10 +1965,7 @@ def phase_hpo_cli(torch, dev, results):
             check(os.path.exists(npz), f"missing {npz}")
             npzs.append(npz)
         n_test = 8  # the last of ARRAY_GROUPS groups
-        n_c, n_b = n_signal_chunks(cfg), -(-n_test // cfg.train.batch_size)
-        want = counts(encode_pop=3 * 2 + 3 * n_b, encode_bwd_pop=3 * 2,
-                      contract=2 * n_c * 2 + n_c * n_b, contract_bwd=n_c * 2,
-                      **mlp_counts(cfg, steps=2, renders=n_b), **split_counts(cfg, steps=2, renders=n_b))
+        want = path_counts(cfg, 3, steps=2, renders=-(-n_test // cfg.train.batch_size), pop=True)
         check(launches == want, f"hpo --pop launches {launches} != {want}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2492,7 +2209,6 @@ def phase_parallel_array(torch, dev, smi: str, results) -> None:
 
     cfg = array_config()
     tc, rc, T = cfg.train, cfg.render, cfg.model.signal_output_dim
-    n_c = n_signal_chunks(cfg)
     batches, data_rec = array_batches(torch, dev, cfg)
     run = [batches[i % len(batches)] for i in range(PARALLEL_STEPS)]
     dgen = torch.Generator(device=dev).manual_seed(1)
@@ -2573,10 +2289,9 @@ def phase_parallel_array(torch, dev, smi: str, results) -> None:
                 if r["step"] != PARALLEL_STEPS:
                     failures.append(f"{name} rank {r['rank']}: step count {r['step']}")
                 for i, (st, ref) in enumerate(zip(r["steps"], refs)):
-                    if st["launches"] != counts(encode=3, encode_bwd=3, contract=2 * n_c, contract_bwd=n_c,
-                                                **mlp_counts(cfg, steps=1), **split_counts(cfg, steps=1)):
+                    if st["launches"] != path_counts(cfg, 3, steps=1):
                         failures.append(f"{name} rank {r['rank']} step {i}: launches {st['launches']}, "
-                                        f"want 3 + 3 and {2 * n_c} + {n_c}")
+                                        f"want {path_counts(cfg, 3, steps=1)}")
                     for k, b in ref[3].items():
                         a = st["losses"][k]
                         terms[i] = max(terms[i], abs(a - b) / max(abs(b), 1e-12))
@@ -2637,9 +2352,12 @@ def phase_parallel_array(torch, dev, smi: str, results) -> None:
 def profile_step(torch, step, state, batch, gen, steady_ms: float, profile_dir: str, name: str) -> None:
     """One more train step under torch.profiler: the kernel table and the
     trace go to ``profile_dir`` as ``{name}_kernels.txt`` and
-    ``{name}_trace.json``; prints the step's device kernel time, its share
-    of the unprofiled steady step, and the kernels that take it."""
+    ``{name}_trace.json``; prints the step's device time by kind
+    (``benchmark.devtrace``), its busy share of the unprofiled steady step,
+    the port's kernels and the kernels that take the most time."""
     from torch.profiler import ProfilerActivity, profile
+
+    from benchmark import devtrace
 
     os.makedirs(profile_dir, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2650,92 +2368,45 @@ def profile_step(torch, step, state, batch, gen, steady_ms: float, profile_dir: 
         f.write(table)
     trace = os.path.join(profile_dir, f"{name}_trace.json")
     prof.export_chrome_trace(trace)
-    emit({"phase": f"profile_{name}", "written": profile_dir, **trace_summary(trace, steady_ms)})
+    with open(trace) as f:
+        summary = devtrace.reduce(json.load(f)["traceEvents"], calls=1)
+    check(summary["kernels"] > 0, "the profiler recorded no device kernels")
+    emit({
+        "phase": f"profile_{name}", "written": profile_dir, "kernels_launched": summary["kernels"],
+        "by_kind_ms": {k: s * 1e3 for k, s in summary["kernel_s_by_kind"].items()},
+        "busy_ms": summary["busy_s"] * 1e3, "profiled_span_ms": summary["span_s"] * 1e3,
+        "busy_share_of_steady_step": summary["busy_s"] * 1e3 / steady_ms,
+        "port_kernels_ms": {n: s * 1e3 for n, s in summary["kernel_s_by_name"].items()
+                            if devtrace.kind_of(n) == "port"},
+        "top_kernels_s": devtrace.top_ops(summary), "idle_gaps_s": summary["idle_gaps"],
+    })
 
 
-def trace_summary(trace_path: str, steady_ms: float) -> dict:
-    """Device kernel time of a chrome trace, by kernel name (first 80
-    characters), and its share of a step of ``steady_ms``."""
-    with open(trace_path) as f:
-        kern = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and e.get("cat") == "kernel"]
-    check(bool(kern), "the profiler recorded no device kernels")
-    by_name = {}
-    for e in kern:
-        by_name[e["name"][:80]] = by_name.get(e["name"][:80], 0.0) + e["dur"] / 1e3
-    busy_ms = sum(by_name.values())
-    by_kind = {}
-    for name, ms in by_name.items():
-        low = name.lower()
-        kind = next((k for k, keys in TRACE_KINDS if any(s in low for s in keys)), "other")
-        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+def launches_by_path(results, keys) -> dict:
+    """The launches of the counters ``keys`` summed, on every path: per train
+    step (flagship, array in both plans, population), in the hpo CLI run,
+    per iteration and validation batch of each runner, and per rank and
+    step of each plan."""
+    def n(launches):
+        return sum(launches[k] for k in keys)
+
     return {
-        "by_kind_ms": by_kind,
-        "kernels_launched": len(kern), "device_kernel_ms": busy_ms,
-        "profiled_span_ms": (max(e["ts"] + e["dur"] for e in kern) - min(e["ts"] for e in kern)) / 1e3,
-        "busy_share_of_steady_step": busy_ms / steady_ms,
-        "port_kernels_ms": {
-            k: v for k, v in by_name.items() if any(s in k.lower() for s in dict(TRACE_KINDS)["port"])
-        },
-        "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10]),
-    }
-
-
-def array_entry(results, key: str) -> dict:
-    """The array path's numbers of one kernel for the ``kernels`` line:
-    launches per step (precomputed plan, and the streaming step), and per
-    stream its time, error, plain, bound and library numbers (fp32, with
-    the step's bf16 mode beside where it has one)."""
-    entry = {
-        "launches_per_step": results["array_launches"][key] / TRAIN_STEPS,
-        "streaming_launches_per_step": results["array_streaming_launches"][key],
-    }
-    for stream, rec in results["encode_array"].items():
-        if key == "scatter":
-            a = rec["kernel_a_scatter"]
-            entry[stream] = {
-                **{k: a[k] for k in ("max_abs_err", "scale", "kernel_ms", "plain_ms", "library_ms",
-                                     "bound_ms", "bound_by", "zero_fill_ms")},
-                **{f"{part}_ms": a[part]["kernel_ms"] for part in ("dense_levels", "hashed_levels")},
-                **{k: a["all"][k] for k in ("runs", "reds", "row_reds", "smem_row_share")},
-            }
-            continue
-        kind = "forward" if key == "encode" else "backward"
-        fp, bf = rec[f"{kind}_fp32"], rec.get(f"{kind}_bf16", {})
-        entry[stream] = {
-            "N": rec["N"], "n_rows": rec["n_rows"], **fp, "ms": fp["kernel_ms"],
-            "bf16_ms": bf.get("kernel_ms"), "bf16_device_ms": bf.get("device_ms"),
-            "bf16_max_abs_err": bf.get("max_abs_err"),
-        }
-    return entry
-
-
-def population_entry(results, key: str) -> dict:
-    """The K-trial numbers of one encode kernel for the ``kernels`` line:
-    launches of its K-trial wrapper in population_array's steps and in the
-    hpo CLI run, and at the pos stream its time (fp32, the step's bf16
-    beside) against POP_K single-table launches, bound and error."""
-    kind = "forward" if key == "encode" else "backward"
-    pos = results["encode_population"]["pos"]
-    fp, bf = pos[f"{kind}_fp32"], pos[f"{kind}_bf16"]
-    return {
-        "K": POP_K, "launches": results["population"]["launches"][f"{key}_pop"],
-        "launches_per_step": results["population"]["launches"][f"{key}_pop"] / TRAIN_STEPS,
-        "hpo_cli_launches": results["hpo_cli"]["launches"][f"{key}_pop"],
-        "ms": fp["kernel_ms"], "device_ms": fp["device_ms"], "k1_loop_ms": fp["k1_loop_ms"],
-        "bound_ms": fp["bound_ms"], "bound_by": fp["bound_by"], "max_abs_err": fp["max_abs_err"],
-        "plain_ms": fp["plain_ms"], "library_ms": fp["library_ms"],
-        "bf16_ms": bf["kernel_ms"], "bf16_k1_loop_ms": bf["k1_loop_ms"],
-        "bf16_max_abs_err": bf["max_abs_err"],
-        "dir": {k: results["encode_population"]["dir"][f"{kind}_fp32"][k]
-                for k in ("kernel_ms", "device_ms", "k1_loop_ms", "bound_ms", "library_ms", "max_abs_err")},
+        "flagship_per_step": n(results["launches"]) / TRAIN_STEPS,
+        "array_per_step": n(results["array_launches"]) / TRAIN_STEPS,
+        "array_streaming_per_step": n(results["array_streaming_launches"]),
+        "population_per_step": n(results["population"]["launches"]) / TRAIN_STEPS,
+        "hpo_cli": n(results["hpo_cli"]["launches"]),
+        **{phase: {"per_iteration": n(results[rkey]["launches_per_iteration"]),
+                   "per_validation_batch": n(results[rkey]["launches_per_validation_batch"])}
+           for phase, rkey in (("runner_array", "runner"), ("runner_flagship", "runner_flagship"))},
+        "parallel_array_per_rank_step": {name: n(r["launches_per_rank_per_step"])
+                                         for name, r in results["parallel"].items()},
     }
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", default=None, help="directory for a torch.profiler trace of one extra step")
-    ap.add_argument("--kernel-a-earlier", default=None, metavar="SOURCE",
-                    help="a hash_scatter.cu of an earlier commit: kernel A built from it is timed beside the repo's")
     args = ap.parse_args()
 
     import torch
@@ -2774,12 +2445,12 @@ def main() -> int:
         "build_s": build_s, "ptxas": ptxas,
     })
 
-    results = {}
+    phase_card_tests()
+    results = {"timing": {next(iter(keys)): {} for *_, keys in KERNELS}}
     cfg = flagship_config()
     static = field.build_field(cfg.model, "RAF").encodings["pos"].grid
     x = flagship_points(torch, dev, cfg, seed=0)
-    earlier = earlier_kernel_a(torch, args.kernel_a_earlier) if args.kernel_a_earlier else None
-    phase_scatter(torch, dev, static, x, results, earlier)
+    phase_scatter(torch, dev, static, x, results)
     phase_encode(torch, dev, cfg, static, x, results)
     phase_encode_bwd(torch, dev, cfg, static, x, results)
     phase_small_parity(torch, dev)
@@ -2788,7 +2459,7 @@ def main() -> int:
     acfg = array_config()
     afst = field.build_field(acfg.model, acfg.path.dataset_type)
     ax, aview = step_points(torch, dev, acfg, seed=0, lo=0.5, hi=2.5)
-    phase_encode_array(torch, dev, afst, ax, aview, results, earlier)
+    phase_encode_array(torch, dev, afst, ax, aview, results)
     phase_encode_population(torch, dev, afst, ax, aview, results)
     del ax, aview
     phase_signal_contract(torch, dev, results)
@@ -2804,78 +2475,13 @@ def main() -> int:
     phase_parallel_array(torch, dev, smi, results)
     emit({"phase": "profiler_misses", **PROFILER_MISSES})
 
-    kernels = (  # name, source, the TPU code it replaces, key of its results and launch count
-        ("hash_scatter_add_rows", "hash_scatter.cu", "avr_tpu/ops/hash_scatter.py:872", "scatter"),
-        ("hashgrid_encode_fwd", "hashgrid_encode.cu", "avr_tpu/models/hashgrid.py:434", "encode"),
-        ("hashgrid_encode_bwd", "hashgrid_encode_bwd.cu", "avr_tpu/ops/hash_scatter.py:872", "encode_bwd"),
-    )
     emit({"kernels": [
-        {
-            "name": name, "route": "cuda", "source": f"avr_torch/ops/csrc/{src}", "replaces": replaces,
-            "launches": results["launches"][key],
-            "max_abs_err": results[key]["max_abs_err"],
-            "ms": results[key]["kernel_ms"], "kernel_ms": results[key]["kernel_ms"],
-            "bf16_ms": results[key].get("bf16_kernel_ms"),
-            "bf16_max_abs_err": results[key].get("bf16_max_abs_err"),
-            "plain_ms": results[key]["plain_ms"], "bound_ms": results[key]["bound_ms"],
-            "bound_by": results[key]["bound_by"], "library_ms": results[key]["library_ms"],
-            "array": array_entry(results, key),
-            **{phase: {
-                "launches": results[rkey]["launches"][key],
-                "launches_per_iteration": results[rkey]["launches_per_iteration"][key],
-                "launches_per_validation_batch": results[rkey]["launches_per_validation_batch"][key],
-            } for phase, rkey in (("runner_array", "runner"), ("runner_flagship", "runner_flagship"))},
-            **({"population": population_entry(results, key)} if key != "scatter" else {}),
-            "parallel_array": {name: {"launches_per_rank_per_step": r["launches_per_rank_per_step"][key],
-                                      "ranks": r["world"]} for name, r in results["parallel"].items()},
-        }
-        for name, src, replaces, key in kernels
-    ] + [
-        {
-            "name": f"signal_contract_{kind}", "route": "cuda", "source": "avr_torch/ops/csrc/signal_contract.cu",
-            "replaces": "avr_tpu/render/fused.py:47 _ray_contract, XLA's fusion of spectrum_accumulate (:272)",
-            "launches_per_step": {
-                "flagship": results["launches"][key] / TRAIN_STEPS,
-                "array": results["array_launches"][key] / TRAIN_STEPS,
-                "array_streaming": results["array_streaming_launches"][key],
-                "population": results["population"]["launches"][key] / TRAIN_STEPS,
-            },
-            "launches_per_validation_batch": {
-                phase: results[rkey]["launches_per_validation_batch"][key]
-                for phase, rkey in (("runner_array", "runner"), ("runner_flagship", "runner_flagship"))
-            },
-            **{shape: {k[len(kind) + 1:]: v for k, v in rec.items() if k.startswith(f"{kind}_")}
-               for shape, rec in results["contract"].items() if kind == "fwd" or shape != "render"},
-        }
-        for kind, key in (("fwd", "contract"), ("bwd", "contract_bwd"))
-    ] + [
-        {
-            "name": f"mlp_act_{kind}", "route": "cuda", "source": "avr_torch/ops/csrc/mlp_act.cu",
-            "replaces": "XLA's fusion of the adds, ReLU and convert around avr_tpu/models/mlp.py _matmul_cd",
-            "launches_per_step": {
-                "flagship": results["launches"][key] / TRAIN_STEPS,
-                "array": results["array_launches"][key] / TRAIN_STEPS,
-                "array_streaming": results["array_streaming_launches"][key],
-                "population": results["population"]["launches"][key] / TRAIN_STEPS,
-            },
-            "launches_per_validation_batch": {
-                phase: results[rkey]["launches_per_validation_batch"][key]
-                for phase, rkey in (("runner_array", "runner"), ("runner_flagship", "runner_flagship"))
-            },
-            **{shape: {k[len(kind) + 1:]: v for k, v in rec.items() if k.startswith(f"{kind}_")}
-               for shape, rec in results["mlp_act"].items() if kind == "fwd" or not shape.startswith("render")},
-        }
-        for kind, key in (("fwd", "mlp_act"), ("bwd", "mlp_act_bwd"))
+        {"name": name, "route": "cuda", "source": f"avr_torch/ops/csrc/{src}", "replaces": replaces,
+         "launches": launches_by_path(results, keys), "timing": results["timing"][next(iter(keys))]}
+        for name, src, replaces, keys in KERNELS
     ]})
-    key = "feature_splits"  # renders that split their precomputed features, checked in each phase
-    emit({"phase": "feature_splits", "per_step": {
-        "flagship": results["launches"][key] / TRAIN_STEPS,
-        "array": results["array_launches"][key] / TRAIN_STEPS,
-        "array_streaming": results["array_streaming_launches"][key],
-        "population": results["population"]["launches"][key] / TRAIN_STEPS,
-    }, **{phase: {"per_iteration": results[rkey]["launches_per_iteration"][key],
-                  "per_validation_batch": results[rkey]["launches_per_validation_batch"][key]}
-          for phase, rkey in (("runner_array", "runner"), ("runner_flagship", "runner_flagship"))}})
+    # renders that split their precomputed features, checked in each phase
+    emit({"phase": "feature_splits", **launches_by_path(results, ("feature_splits",))})
     print(smi, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -582,8 +582,9 @@ def test_card_forward_matches_plain(card, shape):
 @pytest.mark.card
 @pytest.mark.parametrize("shape", list(CARD_SHAPES))
 def test_card_backward_matches_plain(card, shape):
-    """g_pre bit-equal in bf16 and in fp32; each sum within SUM_C·√n·u·‖terms‖₂
-    of the exact sum; a second launch bit-equal (no atomics)."""
+    """g_pre bit-equal in bf16 and in fp32; each sum, the kernel's and the
+    plain version's on the card, within SUM_C·√n·u·‖terms‖₂ of the exact sum;
+    a second launch bit-equal (no atomics)."""
     p, lay, t, (bias, ch_num, context) = card_case(card, shape)
     _, mask = _fwd(ma._forward_kernel, p, lay, t)
     rmask = unpack(mask)
@@ -598,6 +599,8 @@ def test_card_backward_matches_plain(card, shape):
     assert torch.equal(got[0], ref[0].to(torch.bfloat16)) and torch.equal(got32[0], ref[0])
     errs = sum_errors(got, g, rmask, *args)
     assert errs and max(errs.values()) <= 1, errs
+    plain = sum_errors(ref, g, rmask, *args)
+    assert max(plain.values()) <= 1, plain
 
 
 @pytest.mark.card
