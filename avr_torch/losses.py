@@ -10,6 +10,7 @@ spectral energy, each 8-row block of the batch beamforms as one circular
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Dict, NamedTuple, Tuple
@@ -69,6 +70,13 @@ def multi_resolution_stft_loss(
     return total / len(cfg.fft_sizes)
 
 
+@functools.lru_cache(maxsize=None)
+def _rfft_freqs(n_fft: int, fs: float, device) -> torch.Tensor:
+    """fp32 ``np.fft.rfftfreq(n_fft, 1/fs)`` on ``device``, built once per
+    arguments and shared (``stft.hann_window`` says why)."""
+    return torch.as_tensor(np.fft.rfftfreq(n_fft, 1.0 / fs), dtype=torch.float32, device=device)
+
+
 def beamforming_power(
     sig: torch.Tensor, fs: float, sound_speed: float, n_fft: int = 512, n_angles: int = 360
 ) -> torch.Tensor:
@@ -87,7 +95,7 @@ def beamforming_power(
         X = torch.fft.rfft(time_sig[..., :n_fft], dim=-1)
     else:
         X = torch.fft.rfft(torch.nn.functional.pad(time_sig, (0, n_fft - T)), dim=-1)
-    freqs = torch.as_tensor(np.fft.rfftfreq(n_fft, 1.0 / fs), dtype=torch.float32, device=dev)
+    freqs = _rfft_freqs(n_fft, fs, dev)
 
     mic_angles = torch.linspace(math.pi / 2, math.pi / 2 + 2 * math.pi, M + 1, device=dev)[:-1]
     mic_pos = torch.stack([torch.cos(mic_angles), torch.sin(mic_angles)], dim=-1)

@@ -34,6 +34,7 @@ import torch.nn.functional as Fn
 from avr_torch.device import resolve_device
 from avr_torch.ops import mlp_act
 from avr_torch.ops.mlp_act import mm_f32 as _mm_f32
+from avr_torch.ops.take import take
 
 Params = Dict[str, list]
 
@@ -152,7 +153,7 @@ def per_trial(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 def rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Rows ``idx`` of an embedding table [n, d] → [*idx.shape, d], or per
     trial of [K, n, d] → [K, *idx.shape, d]."""
-    return table[idx] if table.dim() == 2 else table[:, idx]
+    return take(table, table.dim() - 2, idx)
 
 
 def _fused(static: MLPStatic, compute_dtype) -> bool:

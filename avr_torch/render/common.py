@@ -2,7 +2,9 @@
 
 The constants depend only on the render config, so ``make_consts``
 computes them once in numpy (float64, exactly as the JAX package does)
-and hands float32 tensors on ``device`` to the renderer.
+and hands float32 tensors on ``device`` to the renderer, the scene box
+too: a render copies nothing from the host, which a CUDA graph's capture
+would refuse.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ class RenderConsts(NamedTuple):
     pathloss: torch.Tensor  # [S, T] per-shell 1/d attenuation slice
     phase_re: torch.Tensor  # [S, F] Re e^{−j2πk·pts2rx/T}
     phase_im: torch.Tensor  # [S, F] Im e^{−j2πk·pts2rx/T}
+    xyz_min: torch.Tensor  # [3] the scene box's lower corner (``rc.xyz_min``)
+    xyz_max: torch.Tensor  # [3] its upper corner
 
 
 def make_consts(rc: RenderConfig, signal_len: int, device="cuda") -> RenderConsts:
@@ -65,19 +69,40 @@ def make_consts(rc: RenderConfig, signal_len: int, device="cuda") -> RenderConst
         pathloss=t(pl_shell),
         phase_re=t(np.cos(ang).astype(np.float32)),
         phase_im=t(np.sin(ang).astype(np.float32)),
+        xyz_min=t(np.asarray(rc.xyz_min, dtype=np.float32)),
+        xyz_max=t(np.asarray(rc.xyz_max, dtype=np.float32)),
     )
+
+
+class _CumprodOfPositives(torch.autograd.Function):
+    """``torch.cumprod`` over the last axis of factors none of which is 0,
+    with the backward autograd takes for such factors, reversed cumsum of
+    out·g over x, bit for bit, but without its test for a zero factor: that
+    test reads a flag back to the host, which stalls the step and is refused
+    inside a CUDA graph's capture."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        x, out = ctx.saved_tensors
+        return (out * g).flip(-1).cumsum(-1).flip(-1).div(x)
 
 
 def compositing_weights(attn: torch.Tensor, d_vals: torch.Tensor) -> torch.Tensor:
     """Volume-rendering weights w = transmittance × alpha over the last axis.
 
     The last interval is 1e10 (opaque); transmittance is the exclusive
-    cumprod of (1 − α + 1e−6).
+    cumprod of (1 − α + 1e−6), whose factors are at least 1e−6 since α ≤ 1.
     """
     dists = torch.cat([d_vals[1:] - d_vals[:-1], d_vals.new_full((1,), 1e10)])
     alpha = 1.0 - torch.exp(-attn * dists)
     one = torch.ones((*alpha.shape[:-1], 1), dtype=alpha.dtype, device=alpha.device)
-    trans = torch.cumprod(torch.cat([one, 1.0 - alpha + 1e-6], dim=-1), dim=-1)[..., :-1]
+    trans = _CumprodOfPositives.apply(torch.cat([one, 1.0 - alpha + 1e-6], dim=-1))[..., :-1]
     return trans * alpha
 
 

@@ -102,8 +102,7 @@ def render_fused(
     if is_complex and direction_tx is None:
         raise ValueError("complex field variant requires direction_tx")
     device = rays_o.device
-    xyz_min = torch.tensor(rc.xyz_min, dtype=torch.float32, device=device)
-    xyz_max = torch.tensor(rc.xyz_max, dtype=torch.float32, device=device)
+    xyz_min, xyz_max = consts.xyz_min, consts.xyz_max
     T = fstatic.signal_output_dim
     F = T // 2 + 1
     S = rc.n_samples
@@ -122,7 +121,8 @@ def render_fused(
     use_remat = remat and torch.is_grad_enabled()
 
     def run(fn, *args):
-        return checkpoint(fn, *args, use_reentrant=False) if use_remat else fn(*args)
+        # the chunks draw no random numbers; stashing the RNG state would not survive a graph capture
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False) if use_remat else fn(*args)
 
     def chunks():
         return (slice(i * C, (i + 1) * C) for i in range(n_chunks))

@@ -49,8 +49,9 @@ at full width with random weights from a seed:
 
 One home for each hand kernel's card checks: its test file's tests marked
 ``card`` hold it against its plain version (shapes, inputs, limits, the
-controls that must break them, bit-equality). Right after the build the
-script runs them (``phase_card_tests``: ``python -m pytest --noconftest -m
+controls that must break them, bit-equality), and the train step's CUDA
+graph is held against eager steps in ``tests/test_torch_step_graph.py``'s.
+Right after the build the script runs them (``phase_card_tests``: ``python -m pytest --noconftest -m
 card`` on ``CARD_TEST_FILES`` in a subprocess) and fails if any fails or
 skips. Then it does what a test cannot do: it drives the paths above end to end,
 counts each kernel's launches on every path (``KERNELS``, the wrappers'
@@ -64,6 +65,15 @@ against the plain CPU path on a small config of each field variant. The
 generic scatter kernel (kernel A) is off every path: ``kernel_a_scatter``
 holds it on boundary streams in a grid of one wave and in one past it,
 F = 1, 2, 4, and times it against ``zero_`` + ``index_add_``.
+
+On the card a train step without a mesh plan is one CUDA graph from its
+second call on (``train/state._StepGraph``), and a replay adds the capture's
+counts again instead of counting at the launches. So every training path's
+graph counters are held (the first call eager, the second the capture,
+every later one a replay; ``check_step_calls``), the wrappers' counts are
+held only on the eager and the capturing call, and one more replayed step
+of the flagship, array and population paths is traced on the device, its
+kernels counted by name (``KERNELS``) against one step's (``check_replay``).
 
 Beside the launch counts it reads ``render.feature_splits`` on every path
 (one per render of the precomputed plan in more than one shell chunk, none
@@ -112,8 +122,10 @@ PARALLEL_STEPS = 2
 # population traffic (``trials.seed_trial``)
 POP_K = 4
 POP_TRAFFIC = os.path.join(ROOT, "benchmark", "traffic", "pop4_groups16.json")
-# the test files whose tests marked ``card`` hold the hand kernels on the card
-CARD_TEST_FILES = ("tests/test_torch_signal_contract.py", "tests/test_torch_mlp_act.py")
+# the test files whose tests marked ``card`` hold the hand kernels, and the
+# step's CUDA graph, on the card
+CARD_TEST_FILES = ("tests/test_torch_signal_contract.py", "tests/test_torch_mlp_act.py",
+                   "tests/test_torch_step_graph.py")
 
 
 def emit(obj) -> None:
@@ -142,6 +154,24 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 PROFILER_MISSES = {"empty_sessions": 0, "event_timed": 0}
 
 
+def traced_events(fn) -> list:
+    """The chrome-trace events of fn() under torch.profiler, on the device
+    alone, synchronised before the session ends."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f)["traceEvents"]
+
+
 def device_ms(fn, iters: int = 10, warmup: int = 2, attempts: int = 3, key: str = "") -> float:
     """Mean device kernel time of ``fn`` (torch.profiler, kernels and
     memsets summed; with ``key``, only those whose name holds it): no host
@@ -150,24 +180,13 @@ def device_ms(fn, iters: int = 10, warmup: int = 2, attempts: int = 3, key: str 
     events: such a session is run again, and after
     ``attempts`` empty ones the time is taken with CUDA events instead
     (``time_ms``, host gaps included). Both are counted in PROFILER_MISSES."""
-    import tempfile
-
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        with tempfile.TemporaryDirectory() as d:
-            path = os.path.join(d, "trace.json")
-            prof.export_chrome_trace(path)
-            with open(path) as f:
-                events = json.load(f)["traceEvents"]
+        events = traced_events(lambda: [fn() for _ in range(iters)])
         kern = [e for e in events if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memset")]
         if kern:
             return sum(e["dur"] for e in kern if key in e.get("name", "")) / 1e3 / iters
@@ -1009,28 +1028,25 @@ def phase_small_standard(torch, dev):
 
 
 def drive_steps(torch, dev, step, state, batches, gen):
-    """One train step per batch, timed on the host clock to a synchronise.
-    The kernels' launch counts are set to 0 just before and read just
-    after. Checks finite loss terms in every step, the step count, and that
-    every param moved. Returns (state, step_ms, bundles, launches, peak
-    memory)."""
-    from avr_torch.ops import hash_scatter as hs
-    from avr_torch.ops import hashgrid_encode as he
+    """One train step per batch, timed on the host clock to a synchronise,
+    each call's launch and graph counts recorded (``recorded_calls``).
+    Checks finite loss terms in every step, the step count, and that every
+    param moved. Returns (state, step_ms, bundles, calls, peak memory)."""
     from avr_torch.train.state import named_leaves
 
     before = {n: t.clone() for n, t in named_leaves(state.params)}
     step0 = int(state.step)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    reset_launch_counts()
+    calls = []
+    counted = recorded_calls(step, calls)
     step_ms, bundles = [], []
     for batch in batches:
         t0 = time.perf_counter()
-        state, bundle = step(state, batch, gen)
+        state, bundle = counted(state, batch, gen)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         bundles.append({k: float(v) for k, v in bundle.as_dict().items()})
-    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     for i, b in enumerate(bundles):
         bad = [k for k, v in b.items() if v != v or v in (float("inf"), float("-inf"))]
@@ -1038,11 +1054,12 @@ def drive_steps(torch, dev, step, state, batches, gen):
     check(int(state.step) == step0 + len(batches), f"step count {int(state.step)} != {step0 + len(batches)}")
     unchanged = [n for n, t in named_leaves(state.params) if torch.equal(t, before[n])]
     check(not unchanged, f"params unchanged by training: {unchanged}")
-    return state, step_ms, bundles, launches, peak
+    return state, step_ms, bundles, calls, peak
 
 
 def train_record(phase, cfg, step_ms, bundles, launches, peak, **extra):
-    """The printed record of a training phase."""
+    """The printed record of a training phase; ``launches``: one step's,
+    as the wrappers counted them."""
     tc, rc = cfg.train, cfg.render
     n = len(step_ms)
     steady_ms = sum(step_ms[1:]) / (n - 1) if n > 1 else step_ms[0]
@@ -1051,7 +1068,7 @@ def train_record(phase, cfg, step_ms, bundles, launches, peak, **extra):
         "batch": tc.batch_size, "rays": rc.n_rays, "shells": rc.n_samples, "T": cfg.model.signal_output_dim,
         **extra, "step_ms": step_ms, "steady_ms_per_step": steady_ms,
         "rays_per_s_fwd_bwd": tc.batch_size * rc.n_rays / (steady_ms / 1e3),
-        "peak_mem_bytes": peak, "launches_per_step": {k: v / n for k, v in launches.items()},
+        "peak_mem_bytes": peak, "launches_per_step": launches,
         "losses_last": bundles[-1],
     }
 
@@ -1078,13 +1095,14 @@ def phase_train(torch, dev, profile_dir, results):
         "pos_tx": torch.rand((bs, 3), generator=gen, device=dev) * 4 - 2,
         "rot_tx": torch.tensor([[1.0, 0.0, 0.0]], device=dev).repeat(bs, 1),
     }
-    state, step_ms, bundles, launches, peak = drive_steps(torch, dev, step, state, [batch] * TRAIN_STEPS, gen)
+    state, step_ms, bundles, calls, peak = drive_steps(torch, dev, step, state, [batch] * TRAIN_STEPS, gen)
     # five encodes per step (pos_pair, dir, tx_pos, tx_dir, tx_pos_sig), each
     # one forward and one backward launch; the generic scatter is off the path
-    want = path_counts(cfg, encodes=5, steps=TRAIN_STEPS)
-    check(launches == want, f"{TRAIN_STEPS} flagship steps: launches {launches}, want {want}")
-    results["launches"] = launches
-    rec = train_record("train_flagship", cfg, step_ms, bundles, launches, peak)
+    want = path_counts(cfg, encodes=5, steps=1)
+    graph = check_step_calls("flagship steps", calls, want)
+    replay = check_replay(torch, "flagship step", lambda: step(state, batch, gen), want)
+    results["launches"] = want
+    rec = train_record("train_flagship", cfg, step_ms, bundles, want, peak, graph=graph, replay_kernels=replay)
     results["flagship_steady_ms"] = rec["steady_ms_per_step"]
     emit(rec)
     if profile_dir:
@@ -1145,13 +1163,15 @@ def phase_train_array(torch, dev, profile_dir, results):
     check(points <= tc.point_budget, f"{points} points take the streaming plan")
     step, _ = make_train_step(fst, consts, rc, tc, crit)
     run = [batches[i % len(batches)] for i in range(TRAIN_STEPS)]
-    state, step_ms, bundles, launches, peak = drive_steps(torch, dev, step, state, run, gen)
-    want = path_counts(cfg, encodes=3, steps=TRAIN_STEPS)
-    check(launches == want, f"{TRAIN_STEPS} array steps: launches {launches}, want {want}")
+    state, step_ms, bundles, calls, peak = drive_steps(torch, dev, step, state, run, gen)
+    want = path_counts(cfg, encodes=3, steps=1)
+    graph = check_step_calls("array steps", calls, want)
+    replay = check_replay(torch, "array step", lambda: step(state, run[0], gen), want)
     check(all(b["das_reg"] > 0 for b in bundles), "the DAS regression term is zero")
-    results["array_launches"] = launches
-    rec = train_record("train_array", cfg, step_ms, bundles, launches, peak, points=points,
-                       shell_chunk=tc.shell_chunk, emb_leaves=emb, data=data_rec)
+    results["array_launches"] = want
+    rec = train_record("train_array", cfg, step_ms, bundles, want, peak, points=points,
+                       shell_chunk=tc.shell_chunk, emb_leaves=emb, data=data_rec, graph=graph,
+                       replay_kernels=replay)
     results["array_steady_ms"] = rec["steady_ms_per_step"]
     emit(rec)
     if profile_dir:
@@ -1173,35 +1193,42 @@ def phase_train_array(torch, dev, profile_dir, results):
         **split_counts(cfg, steps=1, streaming=True),
     )
     step_s, _ = make_train_step(fst, consts, rc, tcs, crit)
-    state, s_ms, s_bundles, s_launches, s_peak = drive_steps(torch, dev, step_s, state, run[:1], gen)
-    check(s_launches == expected, f"streaming step launches {s_launches}, the plan predicts {expected}")
-    results["array_streaming_launches"] = s_launches
-    emit(train_record("train_array_streaming", cfg, s_ms, s_bundles, s_launches, s_peak,
+    state, s_ms, s_bundles, s_calls, s_peak = drive_steps(torch, dev, step_s, state, run[:1], gen)
+    check_step_calls("streaming step", s_calls, expected)
+    results["array_streaming_launches"] = expected
+    emit(train_record("train_array_streaming", cfg, s_ms, s_bundles, expected, s_peak,
                       point_budget=tcs.point_budget, shell_chunk=tcs.shell_chunk, n_chunks=n_chunks,
                       predicted_launches=expected))
 
 
-# The port's hand kernels: name, source in avr_torch/ops/csrc, the TPU code it
-# replaces, and its launch counters in ``avr_torch.utils.profiling`` by the
-# keys of ``launch_counts`` (``*_pop``: the K-trial wrappers of the same encode
-# kernels). The first key names the kernel's timings in the ``kernels`` line.
+# The port's hand kernels: name, the device kernel one counted launch runs
+# once (its name in a device trace), source in avr_torch/ops/csrc, the TPU
+# code it replaces, and its launch counters in ``avr_torch.utils.profiling``
+# by the keys of ``launch_counts`` (``*_pop``: the K-trial wrappers of the
+# same encode kernels). The first key names the kernel's timings in the
+# ``kernels`` line.
 _CONTRACT_TPU = "avr_tpu/render/fused.py:47 _ray_contract, XLA's fusion of spectrum_accumulate (:272)"
 _MLP_ACT_TPU = "XLA's fusion of the adds, ReLU and convert around avr_tpu/models/mlp.py _matmul_cd"
 KERNELS = (
-    ("hash_scatter_add_rows", "hash_scatter.cu", "avr_tpu/ops/hash_scatter.py:872", {"scatter": "scatter.launches"}),
-    ("hashgrid_encode_fwd", "hashgrid_encode.cu", "avr_tpu/models/hashgrid.py:434",
+    ("hash_scatter_add_rows", "scatter_add_rows_kernel", "hash_scatter.cu", "avr_tpu/ops/hash_scatter.py:872",
+     {"scatter": "scatter.launches"}),
+    ("hashgrid_encode_fwd", "hashgrid_encode_kernel", "hashgrid_encode.cu", "avr_tpu/models/hashgrid.py:434",
      {"encode": "encode.fwd_launches", "encode_pop": "encode.fwd_pop_launches"}),
-    ("hashgrid_encode_bwd", "hashgrid_encode_bwd.cu", "avr_tpu/ops/hash_scatter.py:872",
+    ("hashgrid_encode_bwd", "hashgrid_encode_bwd_kernel", "hashgrid_encode_bwd.cu", "avr_tpu/ops/hash_scatter.py:872",
      {"encode_bwd": "encode.bwd_launches", "encode_bwd_pop": "encode.bwd_pop_launches"}),
-    ("signal_contract_fwd", "signal_contract.cu", _CONTRACT_TPU, {"contract": "contract.fwd_launches"}),
-    ("signal_contract_bwd", "signal_contract.cu", _CONTRACT_TPU, {"contract_bwd": "contract.bwd_launches"}),
-    ("mlp_act_fwd", "mlp_act.cu", _MLP_ACT_TPU, {"mlp_act": "mlp_act.fwd_launches"}),
-    ("mlp_act_bwd", "mlp_act.cu", _MLP_ACT_TPU, {"mlp_act_bwd": "mlp_act.bwd_launches"}),
+    ("signal_contract_fwd", "signal_contract_fwd_kernel", "signal_contract.cu", _CONTRACT_TPU,
+     {"contract": "contract.fwd_launches"}),
+    ("signal_contract_bwd", "signal_contract_bwd_kernel", "signal_contract.cu", _CONTRACT_TPU,
+     {"contract_bwd": "contract.bwd_launches"}),
+    ("mlp_act_fwd", "mlp_act_fwd_kernel", "mlp_act.cu", _MLP_ACT_TPU, {"mlp_act": "mlp_act.fwd_launches"}),
+    ("mlp_act_bwd", "mlp_act_bwd_kernel", "mlp_act.cu", _MLP_ACT_TPU, {"mlp_act_bwd": "mlp_act.bwd_launches"}),
 )
 # beside them ``feature_splits``: the renders that split their precomputed
 # per-point tensors into the shell chunks (no launch)
 LAUNCH_COUNTERS = {**{k: c for *_, keys in KERNELS for k, c in keys.items()},
                    "feature_splits": "render.feature_splits"}
+# ``train/state._StepGraph``'s counters, by the keys of ``graph_counts``
+GRAPH_COUNTERS = {"eager": "step.eager_calls", "captures": "step.graph_captures", "replays": "step.graph_replays"}
 
 
 def launch_counts():
@@ -1210,6 +1237,14 @@ def launch_counts():
 
     now = profiling.counters()
     return {k: now.get(name, 0) for k, name in LAUNCH_COUNTERS.items()}
+
+
+def graph_counts():
+    """The train step's graph counters, by the keys of GRAPH_COUNTERS."""
+    from avr_torch.utils import profiling
+
+    now = profiling.counters()
+    return {k: now.get(name, 0) for k, name in GRAPH_COUNTERS.items()}
 
 
 def counts(**nonzero) -> dict:
@@ -1277,6 +1312,78 @@ def since(before: dict) -> dict:
     return {k: now[k] - before[k] for k in now}
 
 
+def recorded_calls(step, calls: list):
+    """``step`` wrapped: each call appends to ``calls`` the wrappers' launch
+    counts and the graph counters of that call alone."""
+    def call(*args, **kwargs):
+        c0, g0 = launch_counts(), graph_counts()
+        out = step(*args, **kwargs)
+        g1 = graph_counts()
+        calls.append({"launches": since(c0), "graph": {k: g1[k] - g0[k] for k in g1}})
+        return out
+
+    return call
+
+
+def replayed(call: dict) -> bool:
+    """Whether a recorded step call replayed a graph it did not capture: its
+    launch counts are then the capture's, added again, not counted at the
+    launches."""
+    return call["graph"]["replays"] > 0 and not call["graph"]["captures"]
+
+
+def check_step_calls(what: str, calls: list, want: dict) -> dict:
+    """The checks of a training path's recorded step calls (``recorded_calls``)
+    on the card without a mesh plan: the first call runs eagerly, the second
+    captures the graph (and replays it), every later one replays it; each
+    call whose launches the wrappers counted (eager, capture) launched
+    ``want``, one step's counts. A replay's counts are checked from a device
+    trace instead (``check_replay``). Returns the graph counters summed."""
+    n = len(calls)
+    graph = {k: sum(c["graph"][k] for c in calls) for k in GRAPH_COUNTERS}
+    expect = {"eager": min(n, 1), "captures": int(n > 1), "replays": max(n - 1, 0)}
+    check(graph == expect, f"{what}: graph counters {graph} over {n} calls, want {expect}")
+    for i, c in enumerate(calls):
+        if not replayed(c):
+            check(c["launches"] == want, f"{what} call {i}: launches {c['launches']}, want {want}")
+    return graph
+
+
+def kernel_launches(launches: dict) -> dict:
+    """Launch counts (the keys of ``launch_counts``) summed by KERNELS' kernel."""
+    return {name: sum(launches[k] for k in keys) for name, _, _, _, keys in KERNELS}
+
+
+def traced_kernels(events) -> dict:
+    """The kernels of KERNELS among a chrome trace's device kernels, each
+    counted by the kernels whose name holds its device name (no such name
+    holds another)."""
+    names = [e.get("name", "") for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    return {name: sum(sym in n for n in names) for name, sym, *_ in KERNELS}
+
+
+def check_replay(torch, what: str, call, want: dict) -> dict:
+    """One more call of a captured step (``call()``), traced on the device
+    alone: it must replay the graph, and the port's kernels in its trace
+    must be those of one eager step, ``want`` (``path_counts`` of one step).
+    A session whose trace holds no kernel is run again, up to 3 times
+    (PROFILER_MISSES). Returns the traced counts."""
+    for _ in range(3):
+        g0 = graph_counts()
+        torch.cuda.synchronize()
+        events = traced_events(call)
+        g1 = graph_counts()
+        graph = {k: g1[k] - g0[k] for k in g1}
+        check(graph == {"eager": 0, "captures": 0, "replays": 1}, f"{what}: the traced call did not replay: {graph}")
+        if any(e.get("ph") == "X" and e.get("cat") == "kernel" for e in events):
+            traced = traced_kernels(events)
+            check(traced == kernel_launches(want), f"{what}: a replay's traced kernels {traced}, "
+                  f"want those of one step {kernel_launches(want)}")
+            return traced
+        PROFILER_MISSES["empty_sessions"] += 1
+    check(False, f"{what}: 3 profiler sessions of a replay held no kernel")
+
+
 def read_jsonl(path: str) -> dict:
     """{tag: {step: value}} of a runner's metrics.jsonl."""
     out = {}
@@ -1299,9 +1406,10 @@ def equal_states(torch, a, b) -> bool:
 
 def instrumented_train(torch, dev, runner):
     """``runner.train()`` with its validations, saves and ``metric_cal``
-    timed, the launch counts set to 0 just before and read just after.
-    Returns (seconds, launches, peak memory, validations, save seconds);
-    each validation holds its iteration, split, seconds, seconds in
+    timed, the launch counts set to 0 just before and read just after, and
+    each step call's launch and graph counts recorded (``recorded_calls``).
+    Returns (seconds, launches, peak memory, validations, save seconds, step
+    calls); each validation holds its iteration, split, seconds, seconds in
     ``metric_cal`` and launches."""
     from avr_torch.train import runner as runner_lib
 
@@ -1327,7 +1435,9 @@ def instrumented_train(torch, dev, runner):
         metric_s[0] += time.perf_counter() - t0
         return out
 
+    calls, step_fn = [], runner._step_fn
     runner.validate, runner.save_checkpoint, runner_lib.metric_cal = timed_validate, timed_save, timed_metric_cal
+    runner._step_fn = recorded_calls(step_fn, calls)
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
@@ -1335,20 +1445,23 @@ def instrumented_train(torch, dev, runner):
     try:
         runner.train()
     finally:
-        runner_lib.metric_cal = metric_cal
+        runner_lib.metric_cal, runner._step_fn = metric_cal, step_fn
     torch.cuda.synchronize(dev)
-    return time.perf_counter() - t0, launch_counts(), torch.cuda.max_memory_allocated(dev), vals, saves
+    return time.perf_counter() - t0, launch_counts(), torch.cuda.max_memory_allocated(dev), vals, saves, calls
 
 
-def check_runner_run(runner, launches, vals, encodes: int, npz_keys=()) -> dict:
+def check_runner_run(runner, launches, vals, calls, encodes: int, npz_keys=()) -> dict:
     """The checks of a RUNNER_ITERATIONS run with checkpoints and
     validations every 2: the step, the checkpoints, finite train losses
     and metrics of both splits, each test validation's npz (with
     ``npz_keys``), ``encodes`` forward launches per validation render batch
     and ``encodes`` + ``encodes`` per training iteration, and the signal
     contraction's launches: one per chunk of a validation render batch, two
-    and one backward per chunk of a (checkpointed) iteration. Returns the
-    run's part of the phase record."""
+    and one backward per chunk of a (checkpointed) iteration. The
+    iterations' step calls (``calls``) by ``check_step_calls``: the graph's
+    counters, and the launches of the eager and the capturing call; no
+    launch outside the step calls and the validations. Returns the run's
+    part of the phase record."""
     import numpy as np
 
     from avr_torch.train import runner as runner_lib
@@ -1377,9 +1490,12 @@ def check_runner_run(runner, launches, vals, encodes: int, npz_keys=()) -> dict:
         want = path_counts(runner.cfg, encodes, renders=n_b)
         check(v["launches"] == want, f"validate {v['mode']}@{v['it']}: launches {v['launches']} != {want}")
         v["batches"] = n_b
+    check(len(calls) == RUNNER_ITERATIONS, f"{len(calls)} step calls in {RUNNER_ITERATIONS} iterations")
+    want = path_counts(runner.cfg, encodes, steps=1)
+    graph = check_step_calls("runner iterations", calls, want)
     train_launch = {k: launches[k] - val_launch[k] for k in launches}
-    want = path_counts(runner.cfg, encodes, steps=RUNNER_ITERATIONS)
-    check(train_launch == want, f"training iterations' launches {train_launch} != {want}")
+    in_steps = {k: sum(c["launches"][k] for c in calls) for k in launches}
+    check(train_launch == in_steps, f"launches outside the step calls and validations: {train_launch} != {in_steps}")
 
     sps = m["samples_per_sec"]
     iter_ms = {it: bs / sps[it] * 1e3 for it in sorted(sps)}
@@ -1393,8 +1509,7 @@ def check_runner_run(runner, launches, vals, encodes: int, npz_keys=()) -> dict:
         "validate_s": {mode: [v["s"] for v in vals if v["mode"] == mode] for mode in ("test", "train")},
         "validate_batches": {v["mode"]: v["batches"] for v in vals},
         "metric_cal_share": sum(v["metric_cal_s"] for v in vals) / sum(v["s"] for v in vals),
-        "launches": launches, "train_launches": train_launch,
-        "launches_per_iteration": {k: v / RUNNER_ITERATIONS for k, v in train_launch.items()},
+        "graph": graph, "launches_per_iteration": want,
         "validation_launches": val_launch,
         "launches_per_validation_batch": {k: v / sum(x["batches"] for x in vals) for k, v in val_launch.items()},
         "test_metric_4": {k: m[f"test_metric/{k}"][4] for k in runner_lib.METRIC_KEYS}, "train_loss": loss,
@@ -1472,8 +1587,8 @@ def phase_runner_array(torch, dev, cfg, results) -> None:
         tc.total_iterations, tc.save_freq, tc.val_freq, tc.log_freq = RUNNER_ITERATIONS, 2, 2, 1
         cfg.path.logdir = os.path.join(tmp, "logs")
         runner = runner_lib.AVRRunner(cfg, d, device=dev)
-        train_s, launches, peak, vals, saves = instrumented_train(torch, dev, runner)
-        run = check_runner_run(runner, launches, vals, encodes=3, npz_keys=("ch_idx",))
+        train_s, launches, peak, vals, saves, calls = instrumented_train(torch, dev, runner)
+        run = check_runner_run(runner, launches, vals, calls, encodes=3, npz_keys=("ch_idx",))
 
         # resume: on the device bit-equal, on the CPU equal params
         cfg2 = copy.deepcopy(cfg)
@@ -1691,8 +1806,8 @@ def phase_runner_flagship(torch, dev, results) -> None:
                       f"{f} loaded through the native decoder differs from the plain decode")
 
         before = {n: t.clone() for n, t in named_leaves(runner.state.params)}
-        train_s, launches, peak, vals, saves = instrumented_train(torch, dev, runner)
-        run = check_runner_run(runner, launches, vals, encodes=5)
+        train_s, launches, peak, vals, saves, calls = instrumented_train(torch, dev, runner)
+        run = check_runner_run(runner, launches, vals, calls, encodes=5)
         unchanged = [n for n, t in named_leaves(runner.state.params) if torch.equal(t, before[n])]
         check(not unchanged, f"params unchanged by the runner: {unchanged}")
         del before
@@ -1807,8 +1922,9 @@ def phase_population_array(torch, dev, profile_dir, results):
     """Population training of the array recipe at full width, bf16 compute:
     POP_K runtime-variant trials (``population_trials``) per step, TRAIN_STEPS
     steps on the port-written set of ``train_array``. Per step: 3 + 3 launches
-    of the K-trial encode wrappers and none of the single-table ones (read
-    just after the step, the counts set to 0 just before); finite losses;
+    of the K-trial encode wrappers and none of the single-table ones, on the
+    eager and the capturing call, and in the trace of one more replayed step
+    (``check_step_calls``, ``check_replay``); finite losses;
     each lane against a single-trial step of its trial from the lane's state
     before the step (``compare_lane``), whose times give the serial rate."""
     from avr_torch import geometry
@@ -1837,23 +1953,19 @@ def phase_population_array(torch, dev, profile_dir, results):
     step_one, _ = make_train_step(fst, consts, rc, tc, crit)
     dgen = torch.Generator(device=dev).manual_seed(1)
     pop_ms, serial_ms, peaks, lanes, bundles = [], [], [], [], []
-    per_step = []
+    calls = []
+    counted = recorded_calls(step_pop, calls)
     for i in range(TRAIN_STEPS):
         batch = batches[i % len(batches)]
         dirs = geometry.ray_directions(rc.n_azi, rc.n_ele, generator=dgen, device=dev)
         before = clone_state(torch, state)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        reset_launch_counts()
         t0 = time.perf_counter()
-        state, bundle = step_pop(state, batch, dirs, hp)
+        state, bundle = counted(state, batch, dirs, hp)
         torch.cuda.synchronize()
         pop_ms.append((time.perf_counter() - t0) * 1e3)
-        launches = launch_counts()
         peaks.append(torch.cuda.max_memory_allocated(dev))
-        per_step.append(launches)
-        want = path_counts(cfg, 3, steps=1, pop=True)
-        check(launches == want, f"population step {i}: launches {launches}, want {want}")
         vals = {k: v.tolist() for k, v in bundle.as_dict().items()}
         bundles.append(vals)
         for name, v in vals.items():
@@ -1871,6 +1983,8 @@ def phase_population_array(torch, dev, profile_dir, results):
         lanes.append(step_lanes)
         del before
     check(state.step.tolist() == [TRAIN_STEPS] * POP_K, f"population step counts {state.step.tolist()}")
+    want = path_counts(cfg, 3, steps=1, pop=True)
+    graph = check_step_calls("population steps", calls, want)
     for n, t in named_leaves(state.params):
         for k in range(POP_K):
             check(not torch.equal(t[k], init[n][k]), f"lane {k} leaf {n} did not move")
@@ -1892,11 +2006,11 @@ def phase_population_array(torch, dev, profile_dir, results):
         "peak_mem_bytes": max(peaks), "peak_mem_per_step": peaks,
         # the peak includes the lanes' pre-step copy (params, mu, nu)
         "state_snapshot_bytes": 3 * sum(t.numel() * t.element_size() for t in init.values()),
-        "launches_per_step": per_step[-1], "lanes": lanes, "losses_last": bundles[-1], "data": data_rec,
+        "launches_per_step": want, "graph": graph, "lanes": lanes, "losses_last": bundles[-1], "data": data_rec,
         "train_array_steady_ms_per_step": results.get("array_steady_ms"),
     }
-    results["population"] = {"launches": {k: sum(c[k] for c in per_step) for k in per_step[0]},
-                             "steady_ms": pop_steady}
+    rec["replay_kernels"] = check_replay(torch, "population step", lambda: step_pop(state, batch, dirs, hp), want)
+    results["population"] = {"launches": want, "steady_ms": pop_steady}
     emit(rec)
     if profile_dir:
         profile_step(torch, lambda st, b, d: step_pop(st, b, d, hp), state, batches[0], dirs, pop_steady,
@@ -1955,7 +2069,7 @@ def phase_hpo_cli(torch, dev, results):
                   "--n_trials", str(POP_K), "--storage", f"sqlite:///{db}", "--device", str(dev)])
         torch.cuda.synchronize(dev)
         wall_s = time.perf_counter() - t0
-        launches = launch_counts()
+        launches, graph = launch_counts(), graph_counts()
         rows = sqlite3.connect(db).execute("SELECT number, state, value FROM trials ORDER BY number").fetchall()
         check([(n, st) for n, st, _ in rows] == [(k, "COMPLETE") for k in range(POP_K)], f"study rows {rows}")
         check(all(v is not None and v == v and abs(v) != float("inf") for _, _, v in rows), f"objectives {rows}")
@@ -1967,10 +2081,12 @@ def phase_hpo_cli(torch, dev, results):
         n_test = 8  # the last of ARRAY_GROUPS groups
         want = path_counts(cfg, 3, steps=2, renders=-(-n_test // cfg.train.batch_size), pop=True)
         check(launches == want, f"hpo --pop launches {launches} != {want}")
+        # two steps: the first eager, the second captures the graph and replays it
+        check(graph == {"eager": 1, "captures": 1, "replays": 1}, f"hpo --pop graph counters {graph}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     rec = {"phase": "hpo_cli_population", "K": POP_K, "trials": len(rows),
-           "objectives": [v for _, _, v in rows], "wall_s": wall_s, "launches": launches}
+           "objectives": [v for _, _, v in rows], "wall_s": wall_s, "launches": launches, "graph": graph}
     results["hpo_cli"] = rec
     emit(rec)
 
@@ -2215,12 +2331,14 @@ def phase_parallel_array(torch, dev, smi: str, results) -> None:
     dirs = [geometry.ray_directions(rc.n_azi, rc.n_ele, generator=dgen, device=dev) for _ in run]
     fst = field.build_field(cfg.model, cfg.path.dataset_type)
     consts = make_consts(rc, T, device=dev)
-    step, _ = make_train_step(fst, consts, rc, tc, CriterionConfig.from_configs(tc, rc))
+    crit = CriterionConfig.from_configs(tc, rc)
 
     def single_step(state, i):
         """Step i in this process from ``state`` (host tensors or on the card):
         (state before, state after, both on the host; ms; loss terms; the
-        gradient's global norm)."""
+        gradient's global norm). A step closure of its own runs the step
+        eagerly, as the plan's ranks do, and the norm's recorder sees it."""
+        step, _ = make_train_step(fst, consts, rc, tc, crit)
         state = state_on(state, dev)
         before = state_on(state, "cpu")
         torch.cuda.synchronize(dev)
@@ -2391,10 +2509,10 @@ def launches_by_path(results, keys) -> dict:
         return sum(launches[k] for k in keys)
 
     return {
-        "flagship_per_step": n(results["launches"]) / TRAIN_STEPS,
-        "array_per_step": n(results["array_launches"]) / TRAIN_STEPS,
+        "flagship_per_step": n(results["launches"]),
+        "array_per_step": n(results["array_launches"]),
         "array_streaming_per_step": n(results["array_streaming_launches"]),
-        "population_per_step": n(results["population"]["launches"]) / TRAIN_STEPS,
+        "population_per_step": n(results["population"]["launches"]),
         "hpo_cli": n(results["hpo_cli"]["launches"]),
         **{phase: {"per_iteration": n(results[rkey]["launches_per_iteration"]),
                    "per_validation_batch": n(results[rkey]["launches_per_validation_batch"])}
@@ -2478,7 +2596,7 @@ def main() -> int:
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": f"avr_torch/ops/csrc/{src}", "replaces": replaces,
          "launches": launches_by_path(results, keys), "timing": results["timing"][next(iter(keys))]}
-        for name, src, replaces, keys in KERNELS
+        for name, _, src, replaces, keys in KERNELS
     ]})
     # renders that split their precomputed features, checked in each phase
     emit({"phase": "feature_splits", **launches_by_path(results, ("feature_splits",))})

@@ -257,6 +257,70 @@ def test_encode_wrappers_count_launches_and_points(monkeypatch):
     assert chip_smoke.launch_counts() == chip_smoke.counts() and profiling.counters() == {}
 
 
+def test_chip_smoke_holds_counted_step_calls_and_leaves_replays_to_the_trace():
+    """``chip_smoke.check_step_calls`` on a stand-in step that counts as the
+    graphed step does: eager, capture (which replays), then replays whose
+    launch counts are copies. The copies are not held; a wrong count on a
+    counted call, or graph counters out of order, fail."""
+    import chip_smoke
+
+    chip_smoke.reset_launch_counts()
+    kinds = iter(["eager", "capture", "replay", "replay"])
+
+    def step(n_encode):
+        kind = next(kinds)
+        profiling.count("encode.fwd_launches", n_encode)
+        if kind == "eager":
+            profiling.count("step.eager_calls")
+        else:
+            profiling.count("step.graph_captures", kind == "capture")
+            profiling.count("step.graph_replays")
+
+    calls = []
+    counted = chip_smoke.recorded_calls(step, calls)
+    for n in (2, 2, 7, 0):
+        counted(n)
+    want = chip_smoke.counts(encode=2)
+    assert [chip_smoke.replayed(c) for c in calls] == [False, False, True, True]
+    assert [c["launches"]["encode"] for c in calls] == [2, 2, 7, 0]
+    assert chip_smoke.check_step_calls("stand-in", calls, want) == {"eager": 1, "captures": 1, "replays": 3}
+    wrong = [calls[0], {**calls[1], "launches": chip_smoke.counts(encode=3)}] + calls[2:]
+    with pytest.raises(AssertionError, match="call 1"):
+        chip_smoke.check_step_calls("stand-in", wrong, want)
+    with pytest.raises(AssertionError, match="graph counters"):
+        chip_smoke.check_step_calls("stand-in", calls[1:], want)
+    chip_smoke.reset_launch_counts()
+
+
+def test_chip_smoke_counts_a_traces_kernels_by_name():
+    """``chip_smoke.traced_kernels`` counts device kernels only, each by the
+    name of its row of ``KERNELS``, the demangled and the mangled form, and
+    matches ``kernel_launches`` of the same launches."""
+    import chip_smoke
+
+    def kernel(name, cat="kernel"):
+        return {"ph": "X", "cat": cat, "name": name, "ts": 0, "dur": 1}
+
+    events = [
+        kernel("void hashgrid_encode_kernel<4, true>(float const*, float const*, avr::Levels, float*)"),
+        kernel("void hashgrid_encode_kernel<2, false>(float const*, float const*, avr::Levels, float*)"),
+        kernel("_Z26hashgrid_encode_bwd_kernelILi2ELb1EEvPKfS1_"),
+        kernel("void (anonymous namespace)::mlp_act_bwd_kernel<2, __nv_bfloat16>(float const*)"),
+        kernel("mlp_act_sum_kernel(float const*, int, int, int)"),
+        kernel("signal_contract_fwd_kernel(float const*, float const*)"),
+        kernel("signal_contract_bias_grad_kernel(float const*, float const*)"),
+        kernel("nvjet_tst_128x64_64x4_1x2_h_bz_coopA_NTT"),
+        kernel("hashgrid_encode_kernel", cat="cpu_op"),
+        {"ph": "i", "cat": "kernel", "name": "mlp_act_fwd_kernel"},
+    ]
+    launches = chip_smoke.counts(encode=1, encode_pop=1, encode_bwd_pop=1, mlp_act_bwd=1, contract=1)
+    assert chip_smoke.traced_kernels(events) == chip_smoke.kernel_launches(launches)
+    assert chip_smoke.kernel_launches(launches) == {
+        "hash_scatter_add_rows": 0, "hashgrid_encode_fwd": 2, "hashgrid_encode_bwd": 1,
+        "signal_contract_fwd": 1, "signal_contract_bwd": 0, "mlp_act_fwd": 0, "mlp_act_bwd": 1,
+    }
+
+
 
 def test_the_fork_handler_forgets_the_threads_id_and_stack(tracer, monkeypatch):
     """After a fork the child's thread has another native id: the handler
